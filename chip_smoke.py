@@ -1,0 +1,479 @@
+"""Drive the PyTorch port's depth-only detect path once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so the script exits non-zero):
+
+1. device   require CUDA (there is no CPU path); print the card's name and
+            power limit as nvidia-smi reports them
+2. build    compile the hand-written kernels (csrc/*.cu) with nvcc
+3. kernels  each kernel against its plain PyTorch twin on the card, at the
+            main path's shapes and at one odd frame size, with timings
+4. main     PoseDetector.detect_fused_batch on B=32 two-object 480x640
+            frames: every kernel launched, no candidate overflow, every
+            objA pose within 1 cm and 5 deg of the ground truth, objA found
+            in >= 90% of frames, objB found / spurious within 3 frames of
+            the JAX reference's counts on the same frames; median ms per
+            batch after warm-up
+5. cpu      the match program's [B, 5, K+1] on the card equals the CPU's
+            (the twins) on all B frames; the first 2 frames through a CPU
+            PoseDetector and the CUDA one: same classes, translations
+            within 1 mm, rotations within 0.5 deg
+
+The workload is the depth-only form of the repo's detect benchmark: two
+trained classes (the snowman objA and its 0.78-scale objB, trained with
+the port's own add_view) plus 130 synthetic distractor templates (13
+classes x 10), threshold 80, 16 hypotheses, ICP 32 iterations / 4 levels
+/ 2 solves per association / finest level 2 associations, 2 depth seeds,
+fine compaction 8, 512-point models. Frames and templates come from
+fixed numpy seeds.
+
+The last line of standard output is one JSON object
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+B = 32
+# frame seed 1: with seed 0, frame 29 holds 17 coarse candidates > 16
+# hypothesis slots in both packages (the reference falls back to its host
+# path there, which is not ported)
+SEED = 1
+# the JAX reference on these 32 frames (CPU, same trained state): objA
+# correct in 32 frames with no other objA pose; objB correct in 21 frames,
+# plus 17 objB poses more than 1 cm / 5 deg from its truth (the 0.78-scale
+# snowman template also fits objA). objB is held to these within 3 frames
+REF_OBJB_FOUND = 21
+REF_OBJB_SPURIOUS = 17
+OBJB_SLACK = 3
+N_DISTRACTOR_CLASSES = 13
+PER_CLASS = 10
+THRESHOLD = 80.0
+ODD_HW = (479, 641)
+GT_T_M = 0.01
+GT_DEG = 5.0
+XDEV_T_M = 0.001
+XDEV_DEG = 0.5
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ----------------------------------------------------------------------
+# workload (numpy only)
+# ----------------------------------------------------------------------
+
+def scenes_module():
+    sys.path.insert(0, str(ROOT / "tools"))
+    import scenes
+
+    return scenes
+
+
+def distractor_templates(seed: int = 0):
+    """13 classes x 10 depth-only template pyramids as plain tuples
+    (width, height, level, features [n, 3]); bbox ~120 px +-20%, 63 / 31
+    scattered features at levels 0 / 1 (the manner of data/synthetic.py)."""
+    rng = np.random.RandomState(seed)
+
+    def scattered(n, w, h, min_dist):
+        feats = []
+        tries = 0
+        while len(feats) < n and tries < 10000:
+            x, y = int(rng.randint(0, w + 1)), int(rng.randint(0, h + 1))
+            if all((x - a) ** 2 + (y - b) ** 2 >= min_dist ** 2 for a, b, _ in feats):
+                feats.append((x, y, int(rng.randint(0, 8))))
+            tries += 1
+        while len(feats) < n:
+            feats.append((int(rng.randint(0, w + 1)), int(rng.randint(0, h + 1)),
+                          int(rng.randint(0, 8))))
+        return np.asarray(feats, np.int32)
+
+    out = {}
+    for c in range(N_DISTRACTOR_CLASSES):
+        pyrs = []
+        for _ in range(PER_CLASS):
+            w = h = int(120 * rng.uniform(0.8, 1.2))
+            pyrs.append([(w, h, 0, scattered(63, w, h, 6)),
+                         (w // 2, h // 2, 1, scattered(31, w // 2, h // 2, 4))])
+        out[f"class_{c:02d}"] = pyrs
+    return out
+
+
+def make_frames(scenes, K, n: int, seed: int):
+    """n two-object frames (objA at tA, objB at tB, z-min composed) and
+    their ground-truth translations, as the repo's detect benchmark."""
+    depA, _, maskA = scenes.snowman_scene()
+    depB, _, maskB = scenes.snowman_scene(scale=0.78)
+    rng = np.random.RandomState(seed)
+    depths, gts = [], []
+    for _ in range(n):
+        tA = np.array([rng.uniform(-0.05, 0.05), rng.uniform(-0.04, 0.04),
+                       rng.uniform(-0.04, 0.04)])
+        tB = np.array([-0.26 + rng.uniform(-0.03, 0.03),
+                       0.11 + rng.uniform(-0.03, 0.03),
+                       0.04 + rng.uniform(-0.03, 0.03)])
+        rA = scenes.render_translated(depA, maskA, K, tA)
+        rB = scenes.render_translated(depB, maskB, K, tB)
+        d, _, _ = scenes.merge_scenes([rA, rB])
+        depths.append(d)
+        gts.append({"objA": tA, "objB": tB})
+    return np.stack(depths), gts
+
+
+def rot_deg(Ra, Rb=None) -> float:
+    """Angle [deg] of the rotation between Ra and Rb (identity when None),
+    from the Frobenius distance 2*sqrt(2)*sin(theta/2): well conditioned
+    near zero, unlike arccos of the trace."""
+    Rb = np.eye(3) if Rb is None else Rb
+    s = np.linalg.norm(np.asarray(Ra) - np.asarray(Rb)) / (2.0 * np.sqrt(2.0))
+    return float(np.degrees(2.0 * np.arcsin(min(1.0, s))))
+
+
+def ground_truth_stats(results, gts):
+    """Per class: frames with a pose within GT_T_M and GT_DEG of the
+    frame's truth (a pure translation), and poses outside it."""
+    found = {"objA": 0, "objB": 0}
+    spurious = {"objA": [], "objB": []}
+    for b, (poses, gt) in enumerate(zip(results, gts)):
+        hit = set()
+        for p in poses:
+            if p.class_id not in gt:
+                continue
+            dt = np.abs(p.pose[:3, 3] - gt[p.class_id]).max()
+            ang = rot_deg(p.pose[:3, :3])
+            if dt <= GT_T_M and ang <= GT_DEG:
+                hit.add(p.class_id)
+            else:
+                spurious[p.class_id].append((b, round(float(dt) * 1e3, 1), round(ang, 2)))
+        for c in hit:
+            found[c] += 1
+    return found, spurious
+
+
+# ----------------------------------------------------------------------
+# card phases
+# ----------------------------------------------------------------------
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20) -> float:
+    """Mean ms per call over ``reps`` calls after one warm-up (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _ang_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Angles [deg] between unit normals [..., 3, H, W] where both are finite."""
+    m = torch.isfinite(a).all(-3) & torch.isfinite(b).all(-3)
+    dots = (a * b).sum(-3)[m].abs().clamp(0, 1)
+    return torch.rad2deg(torch.arccos(dots))
+
+
+def kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
+    """Each kernel vs its twin on the card. Returns the kernel records."""
+    from object_detector_6d_tpu_torch.ops import quantize, refine, response
+    from object_detector_6d_tpu_torch.ops.geometry import FusedScene
+
+    recs = []
+    d_main = torch.as_tensor(depths_np.astype(np.int32), device=dev)
+    H, W = d_main.shape[1:]
+    oh, ow = ODD_HW
+    d_odd = torch.nn.functional.pad(d_main[:2], (0, 1, 0, 0))[:, :oh, :ow].contiguous()
+    d_odd[:, :, -1] = d_odd[:, :, -2]
+
+    def compare(name, got, want):
+        if not torch.equal(got, want):
+            diff = (got.to(torch.float64) - want.to(torch.float64)).abs().max().item()
+            raise AssertionError(f"{name}: kernel != twin (max abs diff {diff})")
+        return 0.0
+
+    # K2 depth-normal quantize
+    err = 0.0
+    for d in (d_main, d_odd):
+        err = max(err, compare(f"dn_quantize {tuple(d.shape)}",
+                               quantize.dn_quantize_batched(d),
+                               quantize.dn_quantize_plain(d)))
+    q0 = quantize.dn_quantize_batched(d_main)
+    recs.append(dict(
+        name="dn_quantize_batched", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/dn_quantize.cu",
+        replaces="object_detector_6d_tpu/ops/quantize_pallas.py:320",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: quantize.dn_quantize_batched(d_main)),
+        plain_ms=cuda_ms(lambda: quantize.dn_quantize_plain(d_main), reps=5),
+        shape=f"[{B},{H},{W}] i32 -> u8"))
+    log(f"kernel dn_quantize_batched: equal to twin at {tuple(d_main.shape)} and "
+        f"{tuple(d_odd.shape)}")
+
+    # K3 spread + response, level 0 (T=5) and level 1 (T=8)
+    q1 = q0[:, ::2, ::2].contiguous()
+    q_odd = quantize.dn_quantize_batched(d_odd)
+    for q, t in ((q0, 5), (q1, 8), (q_odd, 5), (q_odd, 8)):
+        compare(f"response_spread T={t} {tuple(q.shape)}",
+                response.response_spread_batched(q, t),
+                response.response_spread_plain(q, t))
+    ms = (cuda_ms(lambda: response.response_spread_batched(q0, 5))
+          + cuda_ms(lambda: response.response_spread_batched(q1, 8)))
+    plain_ms = (cuda_ms(lambda: response.response_spread_plain(q0, 5), reps=5)
+                + cuda_ms(lambda: response.response_spread_plain(q1, 8), reps=5))
+    recs.append(dict(
+        name="response_spread_batched", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/response_spread.cu",
+        replaces="object_detector_6d_tpu/ops/response_pallas.py:76",
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+        shape=f"[{B},{H},{W}] T=5 + [{B},{H // 2},{W // 2}] T=8"))
+    log("kernel response_spread_batched: equal to twin at T=5 and T=8, main and odd sizes")
+
+    # K4 refine sweep on the main path's D with bank feature tables at
+    # random in-bounds anchors (some candidates with zero features)
+    R0 = response.response_spread_batched(q0, 5)
+    Hd, Wd = -(-H // 5), -(-W // 5)
+    Hp2 = 1 << (max(Hd + 17, 32) - 1).bit_length()
+    Wp2 = 1 << (max(Wd + 17, 128) - 1).bit_length()
+    Rp = torch.nn.functional.pad(R0.to(torch.int8), (0, Wd * 5 - W, 0, Hd * 5 - H))
+    D = (Rp.reshape(B, 8, Hd, 5, Wd, 5).permute(0, 1, 3, 5, 2, 4)
+         .reshape(B, 200, Hd, Wd))
+    D = torch.nn.functional.pad(D, (0, Wp2 - Wd, 0, Hp2 - Hd)).contiguous()
+    plane_b, dr_b, dc_b, n_b = (a[0] for a in bank_args.feat_arrays)
+    rng = np.random.RandomState(1)
+    nT = plane_b.shape[0]
+    Kc = 16
+
+    def tables(Dt, seed):
+        r = np.random.RandomState(seed)
+        Bt, _, Hp, Wp = Dt.shape
+        tids = torch.as_tensor(r.randint(0, nT, (Bt, Kc)), device=dev)
+        lim_r = Hp - 16 - int(dr_b.max())
+        lim_c = Wp - 16 - int(dc_b.max())
+        br = torch.as_tensor(r.randint(0, lim_r, (Bt, Kc, 1)), device=dev)
+        bc = torch.as_tensor(r.randint(0, lim_c, (Bt, Kc, 1)), device=dev)
+        nf = n_b[tids] * torch.as_tensor(r.rand(Bt, Kc) > 0.2, device=dev)
+        return (plane_b[tids].contiguous(), (br + dr_b[tids]).to(torch.int32).contiguous(),
+                (bc + dc_b[tids]).to(torch.int32).contiguous(), nf.to(torch.int32).contiguous())
+
+    tb = tables(D, 2)
+    D_odd = torch.as_tensor(rng.randint(0, 5, (2, 200, 97, 131)), dtype=torch.int8,
+                            device=dev)
+    for Dt, tt in ((D, tb), (D_odd, tables(D_odd, 3))):
+        compare(f"refine_sweep {tuple(Dt.shape)}",
+                refine.refine_sweep_batched(Dt, *tt), refine.refine_sweep_plain(Dt, *tt))
+    recs.append(dict(
+        name="refine_sweep_batched", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/refine_sweep.cu",
+        replaces="object_detector_6d_tpu/ops/refine_pallas.py:83",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: refine.refine_sweep_batched(D, *tb)),
+        plain_ms=cuda_ms(lambda: refine.refine_sweep_plain(D, *tb), reps=5),
+        shape=f"D [{B},200,{Hp2},{Wp2}] i8, tables [{B},{Kc},{plane_b.shape[1]}]"))
+    log(f"kernel refine_sweep_batched: equal to twin at D {tuple(D.shape)} and "
+        f"{tuple(D_odd.shape)}")
+
+    # K5 fused geometry: bit-exact where the kernel and twin are both finite
+    fs_odd = FusedScene(oh, ow, K, device=dev)
+    worst = {}
+    for fs, d in ((fscene_main, d_main), (fs_odd, d_odd)):
+        got, want = fs(d), fs.plain(d)
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise AssertionError(f"FusedScene {tuple(d.shape)}: NaN structure differs")
+        diff = (torch.nan_to_num(got) - torch.nan_to_num(want)).abs()
+        cloud_err = diff[:, 0:3].max().item()
+        norm_err = diff[:, 3:6].max().item()
+        ang = _ang_deg(got[:, 3:6], want[:, 3:6])
+        p99 = torch.quantile(ang.float()[:: max(1, ang.numel() // 1000000)], 0.99).item()
+        worst[tuple(d.shape)] = (cloud_err, norm_err, p99)
+        if cloud_err == 0 and norm_err == 0 and diff[:, 6:].max().item() == 0:
+            log(f"kernel FusedScene {tuple(d.shape)}: bit-exact to twin on valid pixels")
+        elif cloud_err <= 1e-5 and p99 <= 1.1:
+            log(f"kernel FusedScene {tuple(d.shape)}: NOT bit-exact; within bounds "
+                f"(cloud {cloud_err:.3g} <= 1e-5 m, normals p99 {p99:.3g} <= 1.1 deg); "
+                "reason: float rounding of the near-singular FALS solve")
+        else:
+            raise AssertionError(f"FusedScene {tuple(d.shape)}: cloud err {cloud_err}, "
+                                 f"normal p99 {p99} deg")
+    recs.append(dict(
+        name="FusedScene", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/fused_scene.cu",
+        replaces="object_detector_6d_tpu/ops/geometry_pallas.py:183",
+        max_abs_err=max(max(v[0], v[1]) for v in worst.values()),
+        ms=cuda_ms(lambda: fscene_main(d_main)),
+        plain_ms=cuda_ms(lambda: fscene_main.plain(d_main), reps=5),
+        shape=f"[{B},{H},{W}] i32 -> [{B},8,{H},{W}] f32"))
+    for r in recs:
+        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms "
+            f"({r['shape']}; {gpu})")
+    return recs
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs only on a CUDA card", file=sys.stderr)
+        return 2
+    gpu = gpu_line()
+    log(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"nvidia-smi: {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
+    run(torch.device("cuda:0"), gpu)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def run(dev, gpu: str) -> None:
+    from object_detector_6d_tpu_torch.api.detector import Detector
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+    from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
+    from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
+    from object_detector_6d_tpu_torch.quant.features import Feature, Template
+
+    # phase 2: build
+    t0 = time.time()
+    kernels.library()
+    log(f"build: {time.time() - t0:.1f} s -> {kernels.build_info['path']}")
+    for line in kernels.build_info.get("log", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # training: the port's own add_view for objA/objB + distractors
+    scenes = scenes_module()
+    K = scenes.K_DEFAULT
+    params = DetectParams(match_threshold=THRESHOLD, max_hypotheses=16,
+                          icp=ICPParams(iterations=32, num_levels=4,
+                                        solves_per_assoc=2, finest_assoc=2),
+                          num_seeds=2, fine_compact=8)
+    det = Detector(modalities=("DepthNormal",))
+    for cid, pyrs in distractor_templates().items():
+        for pyr in pyrs:
+            det.add_synthetic_template(
+                [Template(w, h, lvl, [Feature(int(x), int(y), int(l)) for x, y, l in f])
+                 for w, h, lvl, f in pyr], cid)
+    pd = PoseDetector(detector=det, params=params, model_points=512, device=dev)
+    t0 = time.time()
+    for cid, scale in (("objA", 1.0), ("objB", 0.78)):
+        dep, _, mask = scenes.snowman_scene(scale=scale)
+        if pd.add_view(cid, dep, K, mask.astype(np.uint8) * 255) != 0:
+            raise AssertionError(f"add_view {cid} failed")
+    log(f"train: {det.num_templates()} templates, 2 classes with views "
+        f"({time.time() - t0:.1f} s on the host)")
+    depths, gts = make_frames(scenes, K, B, seed=SEED)
+
+    # phase 3: kernels vs twins (warm the program first so the bank and
+    # the fused scene exist on the card)
+    pd.detect_fused_batch(depths[:2], K)
+    prog, _ = pd.program(480, 640, K)
+    bank_args = pd.bank_tensors(pd.detector.get_bank())[0]
+    recs = kernel_checks(dev, depths, K, bank_args, prog.fused_scene, gpu)
+
+    # phase 4: the main path, counted
+    counted = (quantize.dn_quantize_batched, response.response_spread_batched,
+               refine.refine_sweep_batched, geometry.FusedScene)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    results = pd.detect_fused_batch(depths, K)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"main path launches: {launches}")
+    for r in recs:
+        r["launches"] = launches[r["name"]]
+        if r["launches"] <= 0 and dev.type == "cuda":
+            raise AssertionError(f"{r['name']} was not launched by the main path")
+    if pd.counters.counts.get("overflow", 0):
+        raise AssertionError("candidate overflow")
+    found, spurious = ground_truth_stats(results, gts)
+    per_class = {}
+    for poses in results:
+        for p in poses:
+            per_class[p.class_id] = per_class.get(p.class_id, 0) + 1
+    log(f"detections over {B} frames: {per_class}; found within "
+        f"{GT_T_M * 1e3:g} mm / {GT_DEG:g} deg: objA {found['objA']}/{B}, objB "
+        f"{found['objB']}/{B} (reference {REF_OBJB_FOUND}); objB poses off "
+        f"truth: {len(spurious['objB'])} (reference {REF_OBJB_SPURIOUS}) "
+        f"(frame, mm, deg): {spurious['objB']}")
+    if spurious["objA"]:
+        raise AssertionError(f"objA poses off the ground truth (frame, mm, deg): "
+                             f"{spurious['objA']}")
+    if found["objA"] < 0.9 * B:
+        raise AssertionError(f"objA found in {found['objA']}/{B} frames (< 90%)")
+    if (found["objB"] < REF_OBJB_FOUND - OBJB_SLACK
+            or len(spurious["objB"]) > REF_OBJB_SPURIOUS + OBJB_SLACK):
+        raise AssertionError(f"objB: found {found['objB']}, off truth "
+                             f"{len(spurious['objB'])}; the reference's "
+                             f"{REF_OBJB_FOUND} / {REF_OBJB_SPURIOUS} +- {OBJB_SLACK}")
+
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd.detect_fused_batch(depths, K)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    batch_ms = statistics.median(times[1:])
+    log(f"time detect_fused_batch: median {batch_ms:.2f} ms per B={B} batch "
+        f"of 480x640 frames (5 runs after 1 warm-up; {gpu}); runs "
+        f"{[round(t, 2) for t in times]}")
+
+    # phase 5: card versus CPU (the twins): the match program on all
+    # frames (exact), the whole path on the first 2
+    cpu_pd = PoseDetector(detector=det, params=params, model_points=512, device="cpu")
+    cpu_pd.views = pd.views
+    cpu_prog, _ = cpu_pd.program(480, 640, K)
+    cpu_args = cpu_pd.bank_tensors(det.get_bank())[0]
+    d_cpu = torch.as_tensor(depths.astype(np.int32))
+    with torch.no_grad():
+        m_cuda = prog.match_program([d_cpu.to(dev)], *bank_args, THRESHOLD).cpu()
+        m_cpu = cpu_prog.match_program([d_cpu], *cpu_args, THRESHOLD)
+    if not torch.equal(m_cuda, m_cpu):
+        bad = (m_cuda != m_cpu).any(-1).any(-1).nonzero().flatten().tolist()
+        raise AssertionError(f"match program card != cpu in frames {bad}")
+    log(f"card vs cpu: match program [B,5,K+1] equal on all {B} frames "
+        f"(n_above per frame {m_cpu[:, 0, -1].to(torch.int64).tolist()})")
+    got_cuda = pd.detect_fused_batch(depths[:2], K)
+    got_cpu = cpu_pd.detect_fused_batch(depths[:2], K)
+    worst_t = worst_r = 0.0
+    for b, (pc, pg) in enumerate(zip(got_cpu, got_cuda)):
+        if [p.class_id for p in pc] != [p.class_id for p in pg]:
+            raise AssertionError(f"frame {b}: classes {[p.class_id for p in pc]} (cpu) "
+                                 f"vs {[p.class_id for p in pg]} (cuda)")
+        for a, c in zip(pc, pg):
+            worst_t = max(worst_t, float(np.abs(a.pose[:3, 3] - c.pose[:3, 3]).max()))
+            worst_r = max(worst_r, rot_deg(a.pose[:3, :3], c.pose[:3, :3]))
+    if worst_t > XDEV_T_M or worst_r > XDEV_DEG:
+        raise AssertionError(f"card vs cpu: {worst_t * 1e3:.3f} mm, {worst_r:.3f} deg")
+    log(f"card vs cpu on 2 frames: same classes, max |dt| {worst_t * 1e3:.4f} mm, "
+        f"max rotation {worst_r:.4f} deg")
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms")
+    log(gpu)
+    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

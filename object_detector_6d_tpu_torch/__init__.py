@@ -1,0 +1,21 @@
+"""object_detector_6d_tpu_torch — the PyTorch / CUDA port of object_detector_6d_tpu.
+
+A second package beside the JAX reference ``object_detector_6d_tpu``,
+with the same subpackage layout and module names. It runs on one NVIDIA
+H100 (hand-written ``sm_90a`` kernels under ``csrc/``) or on the CPU,
+where every kernel wrapper uses its plain PyTorch twin.
+
+This slice carries the depth-only fused detect path:
+
+    PoseDetector(detector=Detector(modalities=("DepthNormal",)), device="cuda")
+    .add_view(...)              training (template extraction + ICP model)
+    .detect_fused_batch(...)    quantize -> response maps -> coarse sweep
+                                -> top-K -> 16x16 refine -> geometry
+                                -> hypothesis lift -> projective ICP
+                                -> device cluster NMS -> [Pose]
+
+The package imports ``torch`` and numpy, never ``jax`` nor the
+reference package. What is still to port is listed in ROADMAP.md.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,434 @@
+"""Fused frame-batched detect: match -> geometry -> lift -> ICP -> NMS
+(port of object_detector_6d_tpu/api/detect_program.py, single device).
+
+    depth [B, H, W] -> match program (match/program.py, top-K candidates)
+        -> fused geometry (K5): cloud + FALS normals + packed scene
+        -> hypothesis lift: per candidate, depth quantiles of the match
+           window seed up to S translation hypotheses
+        -> coarsest ICP level on all B*K*S lanes, best seed per candidate
+        -> optional survivor compaction, fine ICP levels
+        -> device pose-cluster NMS (make_cluster_stage)
+
+The template bank's view tensors (model clouds, anchors, bboxes, view
+poses) are packed once per bank by ``pack_views`` in the bank's global
+template order. No gradients: the whole path runs under no_grad.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from object_detector_6d_tpu_torch.core.config import ICPParams
+from object_detector_6d_tpu_torch.core.se3 import SE3
+from object_detector_6d_tpu_torch.match import program as mp
+from object_detector_6d_tpu_torch.ops.geometry import FusedScene, planes_to_scene8
+from object_detector_6d_tpu_torch.refine.projective import icp_levels
+
+
+class PackedViews(NamedTuple):
+    """Per-template training-view tensors in bank order."""
+
+    model_bank: torch.Tensor  # [nT, N, 6] f32, NaN-padded
+    anchors: torch.Tensor  # [nT, 3] f32 bbox-center anchor points
+    bbox_wh: torch.Tensor  # [nT, 2] int64 level-0 (w, h)
+    view_poses: torch.Tensor  # [nT, 4, 4] f32 (identity when unknown)
+    views_ok: torch.Tensor  # [nT] bool: the template has a registered view
+
+
+def pack_views(bank: "mp.PackedBank", views: Dict, model_points: int,
+               device="cpu") -> PackedViews:
+    """Stack PoseDetector.views records into bank-ordered tensors.
+
+    ``views`` maps (class_id, local_tid) -> a record with model_cloud
+    [N, 6], bbox (x, y, w, h), anchor_point [3] and view_pose (4x4 or None).
+    """
+    nT = bank.num_templates
+    models = np.full((nT, model_points, 6), np.nan, np.float32)
+    anchors = np.zeros((nT, 3), np.float32)
+    bbox_wh = np.zeros((nT, 2), np.int64)
+    poses = np.tile(np.eye(4, dtype=np.float32), (nT, 1, 1))
+    ok = np.zeros(nT, bool)
+    for g in range(nT):
+        rec = views.get((bank.class_ids[g], int(bank.local_tids[g])))
+        if rec is None:
+            continue
+        m = np.asarray(rec.model_cloud, np.float32)
+        n = min(model_points, m.shape[0])
+        models[g, :n] = m[:n]
+        anchors[g] = rec.anchor_point
+        bbox_wh[g] = (rec.bbox[2], rec.bbox[3])
+        if rec.view_pose is not None:
+            poses[g] = rec.view_pose
+        ok[g] = True
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return PackedViews(t(models), t(anchors), t(bbox_wh), t(poses), t(ok))
+
+
+CLUSTER_SLOT = 24  # per-cluster f32 record width (see make_cluster_stage)
+
+
+def make_cluster_stage(K_cap: int, rot_thr_rad: float = float(np.deg2rad(15.0))):
+    """Hypothesis scoring + greedy pose-cluster NMS on the device.
+
+    The semantics of refine/pose.py cluster_poses + PoseCluster.mean_pose:
+    filter (keep & finite & residual <= max_residual), stable sort by
+    (-votes, residual), merge each pose into the FIRST existing cluster
+    whose representative is within both thresholds (same class), average
+    each cluster (hemisphere-aligned quaternion mean + translation mean),
+    sort clusters by total votes.
+
+    Returns ``cluster(packed [B,5,K+1], poses [B,K,4,4], res [B,K],
+    keep [B,K], cls_of_tid [nT], max_residual, trans_thr) -> [B,
+    K*CLUSTER_SLOT + 2]``. Slot layout: [valid, votes_total, sim_max,
+    rep_tid, rep_x, rep_y, residual_mean, n_members, pose 4x4 row-major];
+    trailer [n_raw_candidates, n_poses_pre_nms].
+    """
+    K = K_cap
+    cos_half = float(np.float32(np.cos(rot_thr_rad / 2.0)))
+
+    def cluster(packed, poses, res, keep, cls_of_tid, max_residual, trans_thr):
+        B = packed.shape[0]
+        dev = packed.device
+        ar = torch.arange(K, device=dev)
+        sim = torch.nan_to_num(packed[:, 2, :-1])
+        votes = torch.round(sim * 100.0).to(torch.int64)
+        tids = packed[:, 3, :-1].to(torch.int64)
+        xs = packed[:, 0, :-1]
+        ys = packed[:, 1, :-1]
+        cls = cls_of_tid[tids]
+        valid = keep & torch.isfinite(res) & (res <= max_residual)
+
+        # stable sort by (-votes, residual): residual ranks (stable ties by
+        # lane index) packed under the vote key
+        inf = torch.full_like(res, float("inf"))
+        rank_res = torch.argsort(torch.argsort(torch.where(valid, res, inf),
+                                               dim=1, stable=True),
+                                 dim=1, stable=True)
+        key = torch.where(valid, votes * K + (K - 1 - rank_res), -1)
+        order = torch.argsort(-key, dim=1, stable=True)
+
+        def take(a):
+            return torch.gather(a, 1, order.reshape(B, K, *([1] * (a.dim() - 2)))
+                                .expand(B, K, *a.shape[2:]))
+
+        valid_s = take(valid)
+        q_all = SE3.to_quat(poses)
+        vq = valid_s[..., None]
+        q_s = torch.where(vq, torch.nan_to_num(take(q_all)), 0.0)
+        t_s = torch.where(vq, torch.nan_to_num(take(poses[:, :, :3, 3])), 0.0)
+        res_s = torch.where(valid_s, torch.nan_to_num(take(res)), 0.0)
+        sim_s = torch.where(valid_s, take(sim), 0.0)
+        votes_s = torch.where(valid_s, take(votes), 0)
+        cls_s = take(cls)
+        tid_s = take(tids)
+        x_s = take(xs)
+        y_s = take(ys)
+
+        # pairwise compatibility (rotation via quaternion dot:
+        # angle <= thr  <=>  |q_i . q_j| >= cos(thr/2))
+        qq = torch.matmul(q_s, q_s.transpose(1, 2))
+        qd = torch.abs(qq) >= cos_half
+        td = torch.linalg.vector_norm(t_s[:, :, None] - t_s[:, None, :], dim=-1) <= trans_thr
+        compat0 = (qd & td & (cls_s[:, :, None] == cls_s[:, None, :])
+                   & valid_s[:, :, None] & valid_s[:, None, :])
+
+        # greedy first-fit
+        is_rep = torch.zeros((B, K), dtype=torch.bool, device=dev)
+        cluster_of = torch.full((B, K), -1, dtype=torch.int64, device=dev)
+        for i in range(K):
+            compat = compat0[:, i] & (ar < i)[None] & is_rep
+            has = compat.any(dim=1)
+            j0 = torch.argmax(compat.to(torch.int32), dim=1)  # first True
+            vi = valid_s[:, i]
+            is_rep[:, i] = vi & ~has
+            cluster_of[:, i] = torch.where(vi, torch.where(has, j0, i), -1)
+
+        # per-cluster aggregation ([rep j, member i] membership)
+        M = (cluster_of[:, None, :] == ar[None, :, None]) & valid_s[:, None, :]
+        Mf = M.to(res_s.dtype)
+        cnt = Mf.sum(-1)
+        denom = torch.clamp(cnt, min=1.0)
+        votes_tot = (M * votes_s[:, None, :]).sum(-1)
+        res_mean = (Mf * res_s[:, None, :]).sum(-1) / denom
+        sim_max = torch.max(torch.where(M, sim_s[:, None, :], float("-inf")), dim=-1).values
+        sign = torch.sign(qq)
+        sign = torch.where(sign == 0, 1.0, sign)  # hemisphere-align to rep
+        q_mean = ((Mf * sign)[..., None] * q_s[:, None, :, :]).sum(2)
+        q_mean = q_mean / torch.clamp(
+            torch.linalg.vector_norm(q_mean, dim=-1, keepdim=True), min=1e-32)
+        t_mean = (Mf[..., None] * t_s[:, None, :, :]).sum(2) / denom[..., None]
+        pose_mean = SE3.from_quat(q_mean, t_mean)
+
+        # clusters sorted by total votes (stable: creation order ties)
+        key2 = torch.where(is_rep, votes_tot * K + (K - 1 - ar)[None], -1)
+        ord2 = torch.argsort(-key2, dim=1, stable=True)
+
+        def take2(a):
+            return torch.gather(a, 1, ord2.reshape(B, K, *([1] * (a.dim() - 2)))
+                                .expand(B, K, *a.shape[2:]))
+
+        f32 = torch.float32
+        slots = torch.cat(
+            [
+                take2(is_rep)[..., None].to(f32),
+                take2(votes_tot)[..., None].to(f32),
+                take2(torch.where(is_rep, sim_max, 0.0))[..., None],
+                take2(tid_s)[..., None].to(f32),
+                take2(x_s)[..., None],
+                take2(y_s)[..., None],
+                take2(res_mean)[..., None],
+                take2(cnt)[..., None],
+                take2(pose_mean).reshape(B, K, 16),
+            ],
+            dim=-1,
+        )  # [B, K, CLUSTER_SLOT]
+        trailer = torch.stack([packed[:, 0, -1], valid.sum(1).to(f32)], dim=-1)
+        return torch.cat([slots.reshape(B, -1), trailer], dim=-1)
+
+    return cluster
+
+
+def unflatten_cluster_outputs(flat: np.ndarray, K_cap: int):
+    """Host inverse of make_cluster_stage's flat record.
+
+    Returns (slots [.., K, CLUSTER_SLOT], n_raw [..], n_pass [..])."""
+    lead = flat.shape[:-1]
+    slots = flat[..., : K_cap * CLUSTER_SLOT].reshape(lead + (K_cap, CLUSTER_SLOT))
+    return slots, flat[..., -2], flat[..., -1]
+
+
+LIFT_HIST_BINS = 128
+LIFT_HIST_SPAN_CAP = 1.0  # metres: bounds the bin width (see _hist_quantiles)
+
+
+def _hist_quantiles(w: torch.Tensor, qlevels: torch.Tensor) -> torch.Tensor:
+    """NaN-aware depth quantiles of windows [..., h, w] -> [..., S] via a
+    fixed 128-bin histogram CDF over [zmin, zmin + min(span, 1 m)], with
+    linear interpolation inside the selected bin (nanquantile's order
+    position q*(n-1)); all-NaN windows give NaN. Same arithmetic as the
+    reference; the bin counts are exact integer sums."""
+    lead = w.shape[:-2]
+    flat = w.reshape(*lead, -1)
+    fin = torch.isfinite(flat)
+    vals = torch.where(fin, flat, 0.0)
+    finf = fin.to(torch.float32)
+    n = finf.sum(-1)
+    big = 3.4e38
+    zmin = torch.where(fin, flat, big).amin(-1)
+    zmax = torch.where(fin, flat, -big).amax(-1)
+    zmax = torch.minimum(zmax, zmin + LIFT_HIST_SPAN_CAP)
+    width = torch.clamp(zmax - zmin, min=1e-9) / LIFT_HIST_BINS
+    idx = ((vals - zmin[..., None]) / width[..., None])
+    idx = idx.clamp(-1.0, float(LIFT_HIST_BINS)).to(torch.int64)
+    idx = idx.clamp(0, LIFT_HIST_BINS - 1)
+    counts = torch.zeros(*lead, LIFT_HIST_BINS, dtype=torch.float32, device=w.device)
+    counts.scatter_add_(-1, idx, finf)
+    cdf = torch.cumsum(counts, -1)
+    pos = qlevels * torch.clamp(n - 1.0, min=0.0)[..., None]  # [..., S]
+    # first bin whose inclusive cdf exceeds pos = the bin holding it
+    b = (cdf[..., None, :] <= pos[..., :, None]).sum(-1)
+    b = b.clamp(0, LIFT_HIST_BINS - 1)
+    c_at = torch.gather(counts, -1, b)
+    c_b = torch.clamp(c_at, min=1.0)
+    below = torch.gather(cdf, -1, b) - c_at
+    v = zmin[..., None] + (b.to(torch.float32) + (pos - below + 0.5) / c_b) * width[..., None]
+    v = torch.minimum(torch.maximum(v, zmin[..., None]), zmax[..., None])
+    return torch.where(n[..., None] > 0, v, float("nan"))
+
+
+def make_detect_program(
+    modality_names: Sequence[str],
+    t_at_level: Sequence[int],
+    frame_shape: Tuple[int, int],
+    dn_params,
+    K_mat: np.ndarray,
+    max_candidates: int = 16,
+    icp: Optional[ICPParams] = None,
+    lift_window: int = 160,
+    num_seeds: int = 3,
+    seed_min_gap: float = 0.015,
+    min_inlier_frac: float = 0.25,
+    fine_compact: int = 0,
+    lift_impl: str = "hist",
+    device="cpu",
+):
+    """Build the batched detect program for one (frame shape, K) pair.
+
+    Returns ``run(depths [B, H, W], bank_args, views, threshold,
+    cls_of_tid [nT], max_residual, trans_thr) -> [B, K*CLUSTER_SLOT+2]``
+    f32: the device cluster-NMS record of make_cluster_stage. ``bank_args``
+    is a match.program.BankArgs on the same device.
+    """
+    if lift_impl not in ("hist", "sort"):
+        raise ValueError(f"lift_impl {lift_impl!r}")
+    icp = icp or ICPParams(iterations=100)
+    H, W = frame_shape
+    K_cap = max_candidates
+    S = num_seeds
+    K_mat = np.asarray(K_mat, np.float64)
+    fx, fy = float(np.float32(K_mat[0, 0])), float(np.float32(K_mat[1, 1]))
+    cx, cy = float(np.float32(K_mat[0, 2])), float(np.float32(K_mat[1, 2]))
+    win = lift_window
+    dev = torch.device(device)
+    qlevels = torch.tensor([0.25, 0.5, 0.75][:S], dtype=torch.float32, device=dev)
+    match_prog = mp.make_match_program(modality_names, t_at_level, frame_shape,
+                                       dn_params, max_candidates)
+    fscene = FusedScene(H, W, K_mat, device=dev)
+
+    all_levels = list(range(icp.num_levels - 1, -1, -1))
+    # the coarsest level runs on every (candidate, seed) lane; the rest
+    # on the K surviving lanes
+    if icp.num_levels >= 2:
+        coarse_levels, fine_levels = all_levels[:1], all_levels[1:]
+    else:
+        coarse_levels, fine_levels = all_levels, []
+    M_fine = fine_compact if (0 < fine_compact < K_cap) else K_cap
+    n_solves = max(1, icp.solves_per_assoc)
+    iters = max(1, icp.iterations // icp.num_levels // n_solves)
+    fine_iters = [
+        min(iters, icp.finest_assoc) if (lvl == 0 and icp.finest_assoc > 0)
+        else iters
+        for lvl in fine_levels
+    ]
+    # the projective update-norm early exit (not icp.tolerance; see the
+    # reference's note)
+    proj_tol = 3e-4
+    cluster_stage = make_cluster_stage(K_cap)
+
+    def lift(z_img, packed, views: PackedViews):
+        """[B, 5, K+1] match arrays -> ICP-ready hypotheses."""
+        B = packed.shape[0]
+        xs = packed[:, 0, :-1].to(torch.int64)
+        ys = packed[:, 1, :-1].to(torch.int64)
+        tids = packed[:, 3, :-1].to(torch.int64)
+        keep = packed[:, 4, :-1] > 0
+
+        bw = views.bbox_wh[tids, 0]
+        bh = views.bbox_wh[tids, 1]
+        cx_i = xs + bw // 2
+        cy_i = ys + bh // 2
+        x0 = torch.clamp(cx_i - win // 2, 0, W - win)
+        y0 = torch.clamp(cy_i - win // 2, 0, H - win)
+        step = torch.arange(0, win, 2, device=z_img.device)
+        xs_g = x0[..., None] + step  # [B, K, win/2]
+        ys_g = y0[..., None] + step
+        bidx = torch.arange(B, device=z_img.device)[:, None, None, None]
+        wdw = z_img[bidx, ys_g[..., :, None], xs_g[..., None, :]]  # [B, K, h, w]
+        # restrict the quantiles to the matched template's bbox
+        inx = (xs_g >= (cx_i - bw // 2 - 1)[..., None]) & (xs_g <= (cx_i + bw // 2 + 1)[..., None])
+        iny = (ys_g >= (cy_i - bh // 2 - 1)[..., None]) & (ys_g <= (cy_i + bh // 2 + 1)[..., None])
+        wdw = torch.where(iny[..., :, None] & inx[..., None, :], wdw, float("nan"))
+        if lift_impl == "sort":
+            zq = torch.nanquantile(wdw.reshape(B, K_cap, -1), qlevels, dim=-1)
+            zq = zq.permute(1, 2, 0)  # [B, K, S]
+        else:
+            zq = _hist_quantiles(wdw, qlevels)
+        finite = torch.isfinite(zq)
+        # first-occurrence dedup: seed j drops if a valid earlier seed sits
+        # within seed_min_gap
+        close = torch.abs(zq[..., :, None] - zq[..., None, :]) < seed_min_gap
+        seed_ok = torch.ones_like(finite)
+        for j in range(1, S):
+            earlier = torch.stack(
+                [finite[..., i] & seed_ok[..., i] & close[..., j, i] for i in range(j)],
+                -1).any(-1)
+            seed_ok[..., j] = ~earlier
+        seed_ok = seed_ok & finite & keep[..., None] & views.views_ok[tids][..., None]
+
+        # translation seed: the match-bbox centre reprojected at the window
+        # depth, shifted by the training view's anchor point
+        cxf = xs.to(torch.float32) + bw.to(torch.float32) / 2.0
+        cyf = ys.to(torch.float32) + bh.to(torch.float32) / 2.0
+        zq_s = torch.nan_to_num(zq, nan=1.0)
+        tx = zq_s * ((cxf - cx) / fx)[..., None]
+        ty = zq_s * ((cyf - cy) / fy)[..., None]
+        target = torch.stack([tx, ty, zq_s], -1)  # [B, K, S, 3]
+        t0 = target - views.anchors[tids][..., None, :]
+        pose0 = torch.eye(4, dtype=torch.float32, device=z_img.device).repeat(B, K_cap, S, 1, 1)
+        pose0[..., :3, 3] = t0
+        models = views.model_bank[tids]  # [B, K, N, 6]
+        n_model_valid = torch.clamp(
+            torch.isfinite(models[..., 0]).sum(-1).to(torch.float32), min=1.0)
+        return tids, keep, seed_ok, pose0, models, n_model_valid
+
+    def icp_run(scenes, scene_of_lane, models, poses, levels, iters_l):
+        return icp_levels(models, poses, scenes, scene_of_lane, fx, fy, cx, cy,
+                          H, W, levels=levels, iters_per_level=iters_l,
+                          tolerance=proj_tol, solves=n_solves)
+
+    def lift_and_refine(z_img, scenes, packed, views: PackedViews):
+        B = packed.shape[0]
+        dv = packed.device
+        tids, keep, seed_ok, pose0, models, n_model_valid = lift(z_img, packed, views)
+        N = models.shape[2]
+        # phase 1: the coarsest level on every (frame, candidate, seed) lane
+        flat_models = models[:, :, None].expand(B, K_cap, S, N, 6).reshape(-1, N, 6)
+        frame_of = torch.arange(B, device=dv)
+        res1, poses1, nin1 = icp_run(
+            scenes, frame_of.repeat_interleave(K_cap * S), flat_models,
+            pose0.reshape(-1, 4, 4), coarse_levels, iters)
+        res1 = res1.reshape(B, K_cap, S)
+        nin1 = nin1.reshape(B, K_cap, S)
+        poses1 = poses1.reshape(B, K_cap, S, 4, 4)
+        # best seed per candidate; only seeds whose last coarse step kept
+        # a sizable inlier fraction are eligible
+        last_coarse = coarse_levels[-1] if coarse_levels else 0
+        n_coarse = n_model_valid / (1 << last_coarse)
+        enough1 = nin1 >= min_inlier_frac * n_coarse[..., None]
+        res_sel = torch.where(seed_ok & enough1, res1, float("inf"))
+        best = torch.argmin(res_sel, dim=2)  # first minimum
+        best_res = torch.gather(res_sel, 2, best[..., None])[..., 0]
+        best_pose = torch.gather(
+            poses1, 2, best[..., None, None, None].expand(B, K_cap, 1, 4, 4))[:, :, 0]
+        if fine_levels:
+            # survivor compaction: the M_fine best candidates by coarse
+            # residual (stable: lane order breaks ties) run the fine levels;
+            # the rest drop like coarse failures
+            rank = torch.where(torch.isfinite(best_res), best_res, float("inf"))
+            sel = torch.argsort(rank, dim=1, stable=True)[:, :M_fine]  # [B, M]
+            m_sel = torch.gather(models, 1, sel[..., None, None].expand(B, M_fine, N, 6))
+            p_sel = torch.gather(best_pose, 1, sel[..., None, None].expand(B, M_fine, 4, 4))
+            res2, poses2, nin2 = icp_run(
+                scenes, frame_of.repeat_interleave(M_fine), m_sel.reshape(-1, N, 6),
+                p_sel.reshape(-1, 4, 4), fine_levels, fine_iters)
+            res2 = res2.reshape(B, M_fine)
+            nin2 = nin2.reshape(B, M_fine)
+            nmv_sel = torch.gather(n_model_valid, 1, sel)
+            enough2 = nin2 >= min_inlier_frac * nmv_sel
+            res_f = torch.where(torch.isfinite(torch.gather(best_res, 1, sel)) & enough2,
+                                res2, float("inf"))
+            best_res = torch.full_like(best_res, float("inf")).scatter(1, sel, res_f)
+            best_pose = best_pose.scatter(
+                1, sel[..., None, None].expand(B, M_fine, 4, 4),
+                poses2.reshape(B, M_fine, 4, 4))
+        final = torch.matmul(best_pose, views.view_poses[tids])
+        keep_out = keep & torch.isfinite(best_res)
+        return final, best_res, keep_out
+
+    @torch.no_grad()
+    def run(depths, bank_args, views: PackedViews, threshold, cls_of_tid,
+            max_residual, trans_thr):
+        # named spans for torch.profiler traces (no cost without a profiler)
+        with record_function("detect.match"):
+            packed = match_prog([depths], *bank_args, threshold)
+        with record_function("detect.geometry"):
+            planes = fscene(depths)  # [B, 8, H, W]
+            z_img = planes[:, 2]
+            scenes = planes_to_scene8(planes)
+        with record_function("detect.lift_icp"):
+            poses, res, keep = lift_and_refine(z_img, scenes, packed, views)
+        with record_function("detect.cluster"):
+            return cluster_stage(packed, poses, res, keep, cls_of_tid,
+                                 float(np.float32(max_residual)),
+                                 float(np.float32(trans_thr)))
+
+    run.match_program = match_prog
+    run.fused_scene = fscene
+    return run

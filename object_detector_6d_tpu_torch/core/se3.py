@@ -1,0 +1,136 @@
+"""SE(3) rigid transforms (port of object_detector_6d_tpu/core/se3.py).
+
+The parts the detect slice uses: Rodrigues ``exp`` (the ICP update),
+``apply``/``rotate`` (association), ``compose`` and the quaternion forms
+(device cluster NMS). Poses are [..., 4, 4] float32 tensors; every
+function broadcasts over leading batch axes. Matrix products run in full
+float32: ``torch.backends.cuda.matmul.allow_tf32`` is False by default
+and this package never sets it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix of ``w`` [..., 3] -> [..., 3, 3]."""
+    z = torch.zeros_like(w[..., 0])
+    return torch.stack(
+        [
+            torch.stack([z, -w[..., 2], w[..., 1]], dim=-1),
+            torch.stack([w[..., 2], z, -w[..., 0]], dim=-1),
+            torch.stack([-w[..., 1], w[..., 0], z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: rotation vector [..., 3] -> rotation matrix [..., 3, 3]."""
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    small = theta2 < 1e-12
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    W = hat(w)
+    WW = torch.matmul(W, W)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + a[..., None, None] * W + b[..., None, None] * WW
+
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b over the last axis (the textbook component formula)."""
+    return torch.stack(
+        [
+            a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0],
+        ],
+        dim=-1,
+    )
+
+
+class SE3:
+    """Namespace of pure functions over [..., 4, 4] homogeneous transforms."""
+
+    @staticmethod
+    def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Rotation [..., 3, 3] + translation [..., 3] -> [..., 4, 4]."""
+        batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+        R = R.expand(*batch, 3, 3)
+        t = t.expand(*batch, 3)
+        top = torch.cat([R, t[..., :, None]], dim=-1)
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                              device=top.device).expand(*batch, 1, 4)
+        return torch.cat([top, bottom], dim=-2)
+
+    @staticmethod
+    def exp(twist: torch.Tensor) -> torch.Tensor:
+        """Twist [..., 6] (rotation w, translation v) -> [..., 4, 4];
+        translation taken verbatim (the ICP's linearized update)."""
+        return SE3.from_rt(so3_exp(twist[..., :3]), twist[..., 3:])
+
+    @staticmethod
+    def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(A, B)
+
+    @staticmethod
+    def apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+        """Transform points [..., N, 3] by T [..., 4, 4]."""
+        R = T[..., :3, :3]
+        t = T[..., :3, 3]
+        return torch.matmul(pts, R.transpose(-1, -2)) + t[..., None, :]
+
+    @staticmethod
+    def rotate(T: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+        """Rotate direction vectors [..., N, 3] without translating."""
+        return torch.matmul(vecs, T[..., :3, :3].transpose(-1, -2))
+
+    @staticmethod
+    def to_quat(T: torch.Tensor) -> torch.Tensor:
+        """[..., 4, 4] -> unit quaternion [..., 4] (w, x, y, z), w >= 0
+        (Shepperd's method, branch-free, as the reference)."""
+        R = T[..., :3, :3]
+        m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+        m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+        m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+        tr = m00 + m11 + m22
+        zero = torch.zeros_like(tr)
+        qw0 = torch.sqrt(torch.maximum(zero, 1.0 + tr)) / 2
+        q0 = torch.stack([qw0, (m21 - m12) / (4 * qw0 + 1e-32),
+                          (m02 - m20) / (4 * qw0 + 1e-32),
+                          (m10 - m01) / (4 * qw0 + 1e-32)], dim=-1)
+        qx1 = torch.sqrt(torch.maximum(zero, 1.0 + m00 - m11 - m22)) / 2
+        q1 = torch.stack([(m21 - m12) / (4 * qx1 + 1e-32), qx1,
+                          (m01 + m10) / (4 * qx1 + 1e-32),
+                          (m02 + m20) / (4 * qx1 + 1e-32)], dim=-1)
+        qy2 = torch.sqrt(torch.maximum(zero, 1.0 - m00 + m11 - m22)) / 2
+        q2 = torch.stack([(m02 - m20) / (4 * qy2 + 1e-32),
+                          (m01 + m10) / (4 * qy2 + 1e-32), qy2,
+                          (m12 + m21) / (4 * qy2 + 1e-32)], dim=-1)
+        qz3 = torch.sqrt(torch.maximum(zero, 1.0 - m00 - m11 + m22)) / 2
+        q3 = torch.stack([(m10 - m01) / (4 * qz3 + 1e-32),
+                          (m02 + m20) / (4 * qz3 + 1e-32),
+                          (m12 + m21) / (4 * qz3 + 1e-32), qz3], dim=-1)
+        cond0 = (tr > 0.0)[..., None]
+        cond1 = ((m00 >= m11) & (m00 >= m22))[..., None]
+        cond2 = (m11 >= m22)[..., None]
+        q = torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3)))
+        q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+        return torch.where(q[..., :1] < 0, -q, q)
+
+    @staticmethod
+    def from_quat(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Unit quaternion [..., 4] (w, x, y, z) + t [..., 3] -> [..., 4, 4]."""
+        q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+        w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+        R = torch.stack(
+            [
+                torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+                torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+                torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+            ],
+            dim=-2,
+        )
+        return SE3.from_rt(R, t)

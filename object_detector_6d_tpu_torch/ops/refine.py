@@ -1,0 +1,77 @@
+"""Sparse 16x16 local-refinement sweep: kernel K4 and its plain twin
+(port of object_detector_6d_tpu/ops/refine_pallas.py ``refine_sweep_batched``).
+
+    out[b, k] = sum_{f < nfeat[b, k]} D[b, plane[b,k,f], r0:r0+16, c0:c0+16]
+
+A CPU tensor goes to the plain twin; a CUDA tensor launches
+csrc/refine_sweep.cu or raises. Unlike the TPU kernel, D's plane sizes
+need not be powers of two; instead the wrapper checks that every swept
+tile lies inside its plane.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from object_detector_6d_tpu_torch.ops import kernels
+
+MAX_F = 256  # features per candidate the kernel stages in shared memory
+
+
+def _check_args(d_planes, plane_idx, r0, c0, nfeat):
+    if d_planes.dim() != 4 or plane_idx.dim() != 3 or nfeat.dim() != 2:
+        raise ValueError("expected D [B,P,Hp,Wp], tables [B,K,F], nfeat [B,K]")
+    B, P, Hp, Wp = d_planes.shape
+    if plane_idx.shape[0] != B or r0.shape != plane_idx.shape or c0.shape != plane_idx.shape:
+        raise ValueError(f"table shapes {tuple(plane_idx.shape)}, {tuple(r0.shape)}, "
+                         f"{tuple(c0.shape)} do not match D {tuple(d_planes.shape)}")
+    if nfeat.shape != plane_idx.shape[:2]:
+        raise ValueError(f"nfeat {tuple(nfeat.shape)} vs tables {tuple(plane_idx.shape)}")
+    F = plane_idx.shape[2]
+    live = torch.arange(F, device=nfeat.device)[None, None, :] < nfeat[:, :, None]
+    bad = live & ((plane_idx < 0) | (plane_idx >= P) | (r0 < 0) | (r0 > Hp - 16)
+                  | (c0 < 0) | (c0 > Wp - 16))
+    if bool(bad.any()):
+        raise ValueError("refine sweep: a feature tile leaves its plane")
+
+
+def refine_sweep_plain(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
+    """The plain PyTorch twin of kernel K4 (gathers all F tiles, masks
+    the features beyond nfeat, and sums in int32)."""
+    B, P, Hp, Wp = d_planes.shape
+    K, F = plane_idx.shape[1], plane_idx.shape[2]
+    ar = torch.arange(16, device=d_planes.device)
+    rows = r0[..., None] + ar  # [B, K, F, 16]
+    cols = c0[..., None] + ar
+    live = torch.arange(F, device=d_planes.device)[None, None, :] < nfeat[:, :, None]
+    bidx = torch.arange(B, device=d_planes.device)[:, None, None, None, None]
+    tiles = d_planes[bidx, plane_idx[..., None, None],
+                     rows.clamp(0, Hp - 1)[..., :, None],
+                     cols.clamp(0, Wp - 1)[..., None, :]].to(torch.int32)
+    tiles = tiles * live[..., None, None].to(torch.int32)
+    return tiles.sum(dim=2, dtype=torch.int32)
+
+
+def refine_sweep_batched(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
+    """[B, K, 16, 16] int32 local similarity sums."""
+    _check_args(d_planes, plane_idx, r0, c0, nfeat)
+    if d_planes.device.type == "cpu":
+        return refine_sweep_plain(d_planes, plane_idx, r0, c0, nfeat)
+    args = [d_planes.to(torch.int8).contiguous()] + [
+        t.to(torch.int32).contiguous() for t in (plane_idx, r0, c0, nfeat)]
+    kernels.require_cuda("refine_sweep_batched", *args)
+    B, P, Hp, Wp = d_planes.shape
+    K, F = plane_idx.shape[1], plane_idx.shape[2]
+    if F > MAX_F:
+        raise ValueError(f"refine sweep: {F} features per candidate > {MAX_F}")
+    out = torch.empty((B, K, 16, 16), dtype=torch.int32, device=d_planes.device)
+    lib = kernels.library()
+    code = lib.odc_refine_sweep(
+        *(a.data_ptr() for a in args), out.data_ptr(), B, P, Hp, Wp, K, F,
+        kernels.stream_ptr(d_planes.device))
+    kernels.check(code, "refine_sweep_batched")
+    refine_sweep_batched.launches += 1
+    return out
+
+
+refine_sweep_batched.launches = 0

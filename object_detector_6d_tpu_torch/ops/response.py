@@ -1,0 +1,46 @@
+"""Fused spread + response maps: kernel K3 and its plain twin (port of
+object_detector_6d_tpu/ops/response_pallas.py ``response_spread_batched``).
+
+[B, H, W] u8 quantized orientations -> [B, 8, H, W] u8 response maps
+(values 0..4), equal to ``response_maps(spread(q, t))`` of
+match/response.py. A CPU tensor goes to that plain twin; a CUDA tensor
+launches csrc/response_spread.cu or raises. Integer only: bit-exact.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from object_detector_6d_tpu_torch.match.response import dist_vals, response_maps, spread
+from object_detector_6d_tpu_torch.ops import kernels
+
+MAX_T = 16  # the kernel's shared-memory halo holds T - 1 <= 15 pixels
+
+
+def response_spread_plain(q: torch.Tensor, t: int) -> torch.Tensor:
+    """The plain PyTorch twin of kernel K3."""
+    return response_maps(spread(q, t))
+
+
+def response_spread_batched(q: torch.Tensor, t: int) -> torch.Tensor:
+    """[B, H, W] u8 -> [B, 8, H, W] u8 response maps."""
+    if q.dim() != 3 or q.dtype != torch.uint8:
+        raise ValueError(f"q must be [B, H, W] u8, got {q.dtype} {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return response_spread_plain(q, t)
+    if not 1 <= t <= MAX_T:
+        raise ValueError(f"spread T={t} outside 1..{MAX_T}")
+    q = q.contiguous()
+    kernels.require_cuda("response_spread_batched", q)
+    B, H, W = q.shape
+    out = torch.empty((B, 8, H, W), dtype=torch.uint8, device=q.device)
+    lib = kernels.library()
+    code = lib.odc_response_spread(
+        q.data_ptr(), out.data_ptr(), B, H, W, int(t), *dist_vals(),
+        kernels.stream_ptr(q.device))
+    kernels.check(code, "response_spread_batched")
+    response_spread_batched.launches += 1
+    return out
+
+
+response_spread_batched.launches = 0

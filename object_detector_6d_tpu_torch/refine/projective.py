@@ -1,0 +1,174 @@
+"""Projective-association point-to-plane ICP (port of
+object_detector_6d_tpu/refine/projective.py), batched over lanes.
+
+Each model point is projected through the lane's pose into the organized
+scene's pixel grid; the scene point/normal stored there is its
+correspondence (a row gather instead of a nearest-neighbour search).
+Rejection: a per-level distance cap and a normal-compatibility gate.
+The solve is the centroid-conjugated point-to-plane linearization with
+an unrolled, Levenberg-damped 6x6 Cholesky.
+
+Everything is written once for a leading lane axis L (the reference
+``vmap``s a single-lane function). Scenes are [S, H*W, C] packed rows
+[x, y, z, nx, ny, nz, valid, ...]; ``scene_of_lane`` [L] picks each
+lane's scene.
+
+The reference's ``lax.while_loop`` ends each lane on its own: the step
+whose twist-update norm falls below ``tolerance`` is applied, then the
+lane freezes. Here every level runs its full budget with a per-lane
+active mask that reproduces exactly that.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from object_detector_6d_tpu_torch.core.se3 import SE3, cross
+
+
+def pack_scene7(scene6_img: torch.Tensor) -> torch.Tensor:
+    """Organized [..., H, W, 6] cloud+normals -> flat [..., H*W, 7] with validity."""
+    flat = scene6_img.reshape(*scene6_img.shape[:-3], -1, 6)
+    valid = torch.isfinite(flat).all(-1, keepdim=True).to(flat.dtype)
+    return torch.cat([torch.nan_to_num(flat), valid], -1)
+
+
+def _chol_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Damped SPD 6x6 solves [L, 6, 6], [L, 6] -> [L, 6] via an unrolled
+    Cholesky, in the reference's operation order."""
+    lam = 1e-6 * (A[:, 0, 0] + A[:, 1, 1] + A[:, 2, 2] + A[:, 3, 3]
+                  + A[:, 4, 4] + A[:, 5, 5]) + 1e-12
+    a = [[A[:, i, j] + lam if i == j else A[:, i, j] for j in range(6)]
+         for i in range(6)]
+    L = [[None] * 6 for _ in range(6)]
+    for j in range(6):
+        s = a[j][j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        L[j][j] = torch.sqrt(torch.clamp(s, min=1e-20))
+        inv = 1.0 / L[j][j]
+        for i in range(j + 1, 6):
+            s = a[i][j]
+            for k in range(j):
+                s = s - L[i][k] * L[j][k]
+            L[i][j] = s * inv
+    y = [None] * 6
+    for i in range(6):
+        s = b[:, i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [None] * 6
+    for i in reversed(range(6)):
+        s = y[i]
+        for k in range(i + 1, 6):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x, -1)
+
+
+def _associate(pose, model_pc, mask, scenes, scene_of_lane, fx, fy, cx, cy,
+               H, W, max_corr_dist, min_normal_cos):
+    """Projective data association for [L] lanes of [n] model rows.
+
+    Returns scene points [L, n, 3], normals [L, n, 3] and weights [L, n]."""
+    mp = SE3.apply(pose, model_pc[..., :3])
+    mn = SE3.rotate(pose, model_pc[..., 3:6])
+    z = mp[..., 2]
+    zs = torch.where(z > 1e-6, z, torch.ones_like(z))
+    # clamp before the cast (in-frame values are unaffected): a float
+    # beyond int32 range has no defined conversion
+    u = torch.round(fx * mp[..., 0] / zs + cx).clamp(-1e6, 1e6).to(torch.int64)
+    v = torch.round(fy * mp[..., 1] / zs + cy).clamp(-1e6, 1e6).to(torch.int64)
+    inb = (z > 1e-6) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    pix = v.clamp(0, H - 1) * W + u.clamp(0, W - 1)
+    HW = scenes.shape[1]
+    rows = scenes.reshape(-1, scenes.shape[-1])
+    q = rows[scene_of_lane[:, None] * HW + pix]  # [L, n, C]
+    qp = q[..., :3]
+    qn = q[..., 3:6]
+    d2 = torch.sum((mp - qp) ** 2, dim=-1)
+    ncos = torch.sum(mn * qn, dim=-1)
+    w = (mask & inb & (q[..., 6] > 0) & (d2 <= max_corr_dist * max_corr_dist)
+         & (ncos >= min_normal_cos)).to(torch.float32)
+    return qp, qn, w
+
+
+def _gn_solve(pose, model_pc, qp, qn, w):
+    """One point-to-plane Gauss-Newton solve per lane on fixed pairs."""
+    mp = SE3.apply(pose, model_pc[..., :3])
+    r = torch.sum((mp - qp) * qn, dim=-1)  # [L, n]
+    wsum = torch.clamp(torch.sum(w, dim=-1), min=1.0)  # [L]
+    c = torch.sum(mp * w[..., None], dim=-2) / wsum[:, None]  # [L, 3]
+    J = torch.cat([cross(mp - c[:, None, :], qn), qn], dim=-1)  # [L, n, 6]
+    Jw = J * w[..., None]
+    A = torch.matmul(Jw.transpose(-1, -2), J)
+    b = -torch.matmul(Jw.transpose(-1, -2), r[..., None])[..., 0]
+    x = _chol_solve6(A, b)
+    dT = SE3.exp(x)
+    eye = torch.eye(3, dtype=pose.dtype, device=pose.device).expand(c.shape[0], 3, 3)
+    shift = SE3.from_rt(eye, c)
+    unshift = SE3.from_rt(eye, -c)
+    new_pose = SE3.compose(shift, SE3.compose(dT, SE3.compose(unshift, pose)))
+    residual = torch.sum(torch.abs(r) * w, dim=-1) / wsum
+    return new_pose, torch.linalg.vector_norm(x, dim=-1), residual
+
+
+def _proj_step(pose, model_pc, mask, scenes, scene_of_lane, fx, fy, cx, cy,
+               H, W, max_corr_dist, min_normal_cos, solves: int = 1):
+    """Associate once, then ``solves`` Gauss-Newton updates on the fixed
+    pairs; the residual returned is the last solve's, the update norm the
+    sum over solves."""
+    qp, qn, w = _associate(pose, model_pc, mask, scenes, scene_of_lane,
+                           fx, fy, cx, cy, H, W, max_corr_dist, min_normal_cos)
+    new_pose, upd, residual = _gn_solve(pose, model_pc, qp, qn, w)
+    for _ in range(solves - 1):
+        new_pose, upd2, residual = _gn_solve(new_pose, model_pc, qp, qn, w)
+        upd = upd + upd2
+    return new_pose, upd, residual, torch.sum(w, dim=-1)
+
+
+def icp_levels(
+    model_pc: torch.Tensor,  # [L, N, 6] (NaN rows = padding)
+    pose0: torch.Tensor,  # [L, 4, 4]
+    scenes: torch.Tensor,  # [S, H*W, C] packed scenes
+    scene_of_lane: torch.Tensor,  # [L] int64
+    fx: float, fy: float, cx: float, cy: float,
+    H: int,
+    W: int,
+    levels: Sequence[int],
+    iters_per_level,
+    tolerance: float = 1e-4,
+    corr_dist_base: float = 0.015,
+    min_normal_cos: float = 0.5,
+    solves: int = 1,
+):
+    """Run the given pyramid levels on every lane; returns (residual [L],
+    pose [L, 4, 4], n_inliers [L])."""
+    Ln, N = model_pc.shape[0], model_pc.shape[1]
+    dev = model_pc.device
+    pose = pose0
+    residual = torch.full((Ln,), float("inf"), dtype=torch.float32, device=dev)
+    n_in = torch.zeros((Ln,), dtype=torch.float32, device=dev)
+    if isinstance(iters_per_level, int):
+        iters_per_level = [iters_per_level] * len(levels)
+    for level, lvl_iters in zip(levels, iters_per_level):
+        stride = 1 << level
+        n_lvl = max(1, N // stride)
+        sample = model_pc[:, ::stride][:, :n_lvl]
+        mask = torch.isfinite(sample[..., :3]).all(-1)
+        sample = torch.nan_to_num(sample)
+        cap = float(torch.tensor(corr_dist_base, dtype=torch.float32)) * (1 << level)
+        upd = torch.full((Ln,), 1e9, dtype=torch.float32, device=dev)
+        for _ in range(lvl_iters):
+            active = upd >= tolerance
+            new_pose, new_upd, res, nin = _proj_step(
+                pose, sample, mask, scenes, scene_of_lane, fx, fy, cx, cy,
+                H, W, cap, min_normal_cos, solves=solves)
+            pose = torch.where(active[:, None, None], new_pose, pose)
+            residual = torch.where(active, res, residual)
+            n_in = torch.where(active, nin, n_in)
+            upd = torch.where(active, new_upd, upd)
+    return residual, pose, n_in

@@ -1,0 +1,97 @@
+"""Package rules of object_detector_6d_tpu_torch: it never imports JAX or
+the JAX package, and a kernel wrapper never falls back to its plain twin
+for a tensor that is not on the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import object_detector_6d_tpu_torch
+from object_detector_6d_tpu_torch.ops import kernels
+from object_detector_6d_tpu_torch.ops.geometry import FusedScene
+from object_detector_6d_tpu_torch.ops.quantize import dn_quantize_batched
+from object_detector_6d_tpu_torch.ops.refine import refine_sweep_batched
+from object_detector_6d_tpu_torch.ops.response import response_spread_batched
+
+torch.set_num_threads(1)
+
+PKG = pathlib.Path(object_detector_6d_tpu_torch.__file__).parent
+ROOT = PKG.parent
+
+
+def test_importing_the_pipeline_loads_no_jax():
+    code = ("import sys, object_detector_6d_tpu_torch.api.pipeline, "
+            "object_detector_6d_tpu_torch.io.convert\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'object_detector_6d_tpu' or m.startswith('object_detector_6d_tpu.')]\n"
+            "assert not bad, bad\nprint('clean')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix()
+                                        for p in PKG.rglob("*.py")))
+def test_no_module_imports_jax(path):
+    tree = ast.parse((PKG / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "object_detector_6d_tpu"), (path, n)
+
+
+def _meta(*shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def test_wrappers_raise_off_cpu_instead_of_falling_back():
+    """A tensor that is not on the CPU goes to the kernel path, which
+    takes CUDA tensors only: it raises, it never runs the twin."""
+    with pytest.raises(RuntimeError, match="kernel path"):
+        dn_quantize_batched(_meta(1, 16, 16, dtype=torch.int32))
+    with pytest.raises(RuntimeError, match="kernel path"):
+        response_spread_batched(_meta(1, 16, 16, dtype=torch.uint8), 5)
+    fs = FusedScene(16, 16, np.array([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]]))
+    with pytest.raises(RuntimeError, match="kernel path"):
+        fs(_meta(1, 16, 16, dtype=torch.int32))
+    i32 = torch.int32
+    with pytest.raises(RuntimeError):
+        refine_sweep_batched(_meta(1, 2, 32, 32, dtype=torch.int8), _meta(1, 2, 3, dtype=i32),
+                             _meta(1, 2, 3, dtype=i32), _meta(1, 2, 3, dtype=i32),
+                             _meta(1, 2, dtype=i32))
+
+
+def test_kernel_library_raises_without_cuda_build(monkeypatch, tmp_path):
+    """No CUDA build: building the kernels raises; so does a missing nvcc
+    when a card is visible."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA build is present")
+    monkeypatch.setattr(kernels, "_lib", None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernels.library()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+    monkeypatch.setattr(kernels.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.library()
+
+
+def test_kernel_source_hash_tracks_sources():
+    h = kernels.source_hash()
+    assert len(h) == 16 and h == kernels.source_hash()
+    names = {p.name for p in kernels.CSRC.glob("*.cu")}
+    assert names == {"dn_quantize.cu", "response_spread.cu", "refine_sweep.cu",
+                     "fused_scene.cu"}
