@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's depth-only detect path once on one CUDA card.
+"""Drive the PyTorch port's detect paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,28 +7,39 @@ Phases (each raises on failure, so the script exits non-zero):
 1. device   require CUDA (there is no CPU path); print the card's name and
             power limit as nvidia-smi reports them
 2. build    compile the hand-written kernels (csrc/*.cu) with nvcc
-3. kernels  each kernel against its plain PyTorch twin on the card, at the
-            main path's shapes and at one odd frame size, with timings
-4. main     PoseDetector.detect_fused_batch on B=32 two-object 480x640
-            frames: every kernel launched, no candidate overflow, every
-            objA pose within 1 cm and 5 deg of the ground truth, objA found
-            in >= 90% of frames, objB found / spurious within 3 frames of
-            the JAX reference's counts on the same frames; median ms per
-            batch after warm-up
-5. cpu      the match program's [B, 5, K+1] on the card equals the CPU's
-            (the twins) on all B frames; the first 2 frames through a CPU
-            PoseDetector and the CUDA one: same classes, translations
-            within 1 mm, rotations within 0.5 deg
+3. two-modality path, the reference's default Detector() (ColorGradient +
+   DepthNormal) on the repo's detect benchmark workload:
+   a. kernels  K1 (colour quantize) against its twin at [B,480,640,3],
+               at [B,240,320,3] (after pyr_down_u8) and at 479x641, each
+               on the gray frames and on frames with seeded per-channel
+               noise; K6 (coarse sweep) against its twin at the main
+               path's planes and tables and at an odd plane size; timings
+   b. main     PoseDetector.detect_fused_batch(depths, K, rgbs) on B=32
+               two-object 480x640 frames: every kernel K1-K6 launched, no
+               candidate overflow, every objA pose within 1 cm and 5 deg of
+               the ground truth, objA found in >= 90% of frames, objB
+               found / off-truth within 3 of the JAX reference's counts on
+               the same frames; median ms per batch after warm-up
+   c. cpu      the match program's [B, 5, K+1] on the card equals the CPU's
+               (the twins) on all B frames; the main run's first 2 frames
+               against the same 2 through a CPU PoseDetector: same classes,
+               translations within 1 mm, rotations within 0.5 deg
+4. depth-only path, Detector(modalities=("DepthNormal",)): K2-K5 against
+   their twins (main shapes and 479x641) with timings, then the same main
+   and cpu checks as 3b and 3c on its own frames
 
-The workload is the depth-only form of the repo's detect benchmark: two
-trained classes (the snowman objA and its 0.78-scale objB, trained with
-the port's own add_view) plus 130 synthetic distractor templates (13
-classes x 10), threshold 80, 16 hypotheses, ICP 32 iterations / 4 levels
-/ 2 solves per association / finest level 2 associations, 2 depth seeds,
-fine compaction 8, 512-point models. Frames and templates come from
-fixed numpy seeds.
+The two-modality workload is bench.py's: the snowman objA and its
+0.78-scale objB trained with the port's add_view (rgb = the gray view x3)
+plus synthetic_bank(n_classes=12, per_class=10, bbox_px=120, seed=0),
+122 templates of 63+63 / 31+31 features; threshold 80, 16 hypotheses,
+ICP 32 iterations / 4 levels / 2 solves per association / finest level 2
+associations, 2 depth seeds, fine compaction 8, 512-point models. The
+depth-only workload has 130 depth-only distractors instead (13 classes x
+10, 63 / 31 features). Frames and templates come from fixed numpy seeds.
 
-The last line of standard output is one JSON object
+The line before the last is {"kernels": [...]}: every kernel with its
+launches on the two-modality main path, its largest difference from its
+twin and its time beside the twin's. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -46,9 +57,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 B = 32
-# frame seed 1: with seed 0, frame 29 holds 17 coarse candidates > 16
-# hypothesis slots in both packages (the reference falls back to its host
-# path there, which is not ported)
+# depth-only frame seed 1: with seed 0, frame 29 holds 17 coarse candidates
+# > 16 hypothesis slots in both packages (the reference falls back to its
+# host path there, which is not ported)
 SEED = 1
 # the JAX reference on these 32 frames (CPU, same trained state): objA
 # correct in 32 frames with no other objA pose; objB correct in 21 frames,
@@ -56,6 +67,14 @@ SEED = 1
 # snowman template also fits objA). objB is held to these within 3 frames
 REF_OBJB_FOUND = 21
 REF_OBJB_SPURIOUS = 17
+# two-modality frames: bench.py's first batch, seed 0. The JAX reference on
+# these 32 frames (CPU, the same trained state, no candidate overflow)
+# finds objA in 32 frames with no other objA pose, and objB in none: its
+# 27 objB poses all lie 0.3-0.65 m from objB's truth (the 0.78-scale
+# snowman's template also fits objA). objB is held to these within 3
+SEED2 = 0
+REF2_OBJB_FOUND = 0
+REF2_OBJB_SPURIOUS = 27
 OBJB_SLACK = 3
 N_DISTRACTOR_CLASSES = 13
 PER_CLASS = 10
@@ -82,43 +101,32 @@ def scenes_module():
     return scenes
 
 
-def distractor_templates(seed: int = 0):
-    """13 classes x 10 depth-only template pyramids as plain tuples
-    (width, height, level, features [n, 3]); bbox ~120 px +-20%, 63 / 31
-    scattered features at levels 0 / 1 (the manner of data/synthetic.py)."""
+def add_distractors(det, seed: int = 0):
+    """13 classes x 10 depth-only template pyramids into ``det``: bbox
+    ~120 px +-20%, 63 / 31 scattered features at levels 0 / 1 (the
+    one-modality form of data/synthetic.py's bank)."""
+    from object_detector_6d_tpu_torch.data.synthetic import scattered_features
+    from object_detector_6d_tpu_torch.quant.features import Template
+
     rng = np.random.RandomState(seed)
-
-    def scattered(n, w, h, min_dist):
-        feats = []
-        tries = 0
-        while len(feats) < n and tries < 10000:
-            x, y = int(rng.randint(0, w + 1)), int(rng.randint(0, h + 1))
-            if all((x - a) ** 2 + (y - b) ** 2 >= min_dist ** 2 for a, b, _ in feats):
-                feats.append((x, y, int(rng.randint(0, 8))))
-            tries += 1
-        while len(feats) < n:
-            feats.append((int(rng.randint(0, w + 1)), int(rng.randint(0, h + 1)),
-                          int(rng.randint(0, 8))))
-        return np.asarray(feats, np.int32)
-
-    out = {}
     for c in range(N_DISTRACTOR_CLASSES):
-        pyrs = []
         for _ in range(PER_CLASS):
             w = h = int(120 * rng.uniform(0.8, 1.2))
-            pyrs.append([(w, h, 0, scattered(63, w, h, 6)),
-                         (w // 2, h // 2, 1, scattered(31, w // 2, h // 2, 4))])
-        out[f"class_{c:02d}"] = pyrs
-    return out
+            det.add_synthetic_template(
+                [Template(w, h, 0, scattered_features(rng, 63, w, h, 6)),
+                 Template(w // 2, h // 2, 1, scattered_features(rng, 31, w // 2, h // 2, 4))],
+                f"class_{c:02d}")
+    return det
 
 
 def make_frames(scenes, K, n: int, seed: int):
-    """n two-object frames (objA at tA, objB at tB, z-min composed) and
-    their ground-truth translations, as the repo's detect benchmark."""
+    """n two-object frames (objA at tA, objB at tB, z-min composed), their
+    BGR frames (the composed gray x3) and ground-truth translations, as
+    the repo's detect benchmark."""
     depA, _, maskA = scenes.snowman_scene()
     depB, _, maskB = scenes.snowman_scene(scale=0.78)
     rng = np.random.RandomState(seed)
-    depths, gts = [], []
+    depths, rgbs, gts = [], [], []
     for _ in range(n):
         tA = np.array([rng.uniform(-0.05, 0.05), rng.uniform(-0.04, 0.04),
                        rng.uniform(-0.04, 0.04)])
@@ -127,10 +135,11 @@ def make_frames(scenes, K, n: int, seed: int):
                        0.04 + rng.uniform(-0.03, 0.03)])
         rA = scenes.render_translated(depA, maskA, K, tA)
         rB = scenes.render_translated(depB, maskB, K, tB)
-        d, _, _ = scenes.merge_scenes([rA, rB])
+        d, _, g = scenes.merge_scenes([rA, rB])
         depths.append(d)
+        rgbs.append(np.repeat(g[..., None], 3, axis=2))
         gts.append({"objA": tA, "objB": tB})
-    return np.stack(depths), gts
+    return np.stack(depths), np.stack(rgbs), gts
 
 
 def rot_deg(Ra, Rb=None) -> float:
@@ -195,8 +204,96 @@ def _ang_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.rad2deg(torch.arccos(dots))
 
 
-def kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
-    """Each kernel vs its twin on the card. Returns the kernel records."""
+def compare(name, got, want) -> float:
+    """Kernel output against its twin's, bitwise; returns the max abs error (0)."""
+    if not torch.equal(got, want):
+        diff = (got.to(torch.float64) - want.to(torch.float64)).abs().max().item()
+        raise AssertionError(f"{name}: kernel != twin (max abs diff {diff})")
+    return 0.0
+
+
+def decimate(R: torch.Tensor, t: int) -> torch.Tensor:
+    """[B, 8, H, W] responses -> the match program's int8 T-decimated planes."""
+    from object_detector_6d_tpu_torch.match.program import decimate as mp_decimate
+
+    H, W = R.shape[2:]
+    return mp_decimate(R.to(torch.int8), t, -(-H // t), -(-W // t)).contiguous()
+
+
+def odd_frames(x: torch.Tensor) -> torch.Tensor:
+    """The first 2 frames at ODD_HW: one row cut, the last column repeated."""
+    oh, ow = ODD_HW
+    x = x[:2, :oh]
+    return torch.cat([x, x[:, :, -1:]], dim=2)[:, :, :ow].contiguous()
+
+
+def color_kernel_checks(dev, pd, rgbs_np, depths_np, gpu):
+    """K1 and K6 against their twins on the card. Returns their records."""
+    from object_detector_6d_tpu_torch.match.program import quantize_pyramids_batched
+    from object_detector_6d_tpu_torch.ops import quantize, refine, response
+    from object_detector_6d_tpu_torch.quant.pyramid import pyr_down_u8
+
+    det = pd.detector
+    weak = det.cg_params.weak_threshold
+    gray = torch.as_tensor(rgbs_np, device=dev)
+    noise = np.random.RandomState(7).randint(-24, 25, rgbs_np.shape, dtype=np.int16)
+    noisy = torch.as_tensor(np.clip(rgbs_np + noise, 0, 255).astype(np.uint8), device=dev)
+    gray1 = pyr_down_u8(gray)
+    for tag, x in (("gray", gray), ("noise", noisy)):
+        for xx in (x, pyr_down_u8(x), odd_frames(x)):
+            compare(f"cg_quantize {tag} {tuple(xx.shape)}",
+                    quantize.cg_quantize_batched(xx, weak),
+                    quantize.cg_quantize_plain(xx, weak))
+    log(f"kernel cg_quantize_batched: equal to twin at {tuple(gray.shape)}, "
+        f"{tuple(gray1.shape)} and {tuple(odd_frames(gray).shape)}, gray and noisy frames")
+    recs = [dict(
+        name="cg_quantize_batched", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/cg_quantize.cu",
+        replaces="object_detector_6d_tpu/ops/quantize_pallas.py:177",
+        max_abs_err=0.0,
+        ms=(cuda_ms(lambda: quantize.cg_quantize_batched(gray, weak))
+            + cuda_ms(lambda: quantize.cg_quantize_batched(gray1, weak))),
+        plain_ms=(cuda_ms(lambda: quantize.cg_quantize_plain(gray, weak), reps=5)
+                  + cuda_ms(lambda: quantize.cg_quantize_plain(gray1, weak), reps=5)),
+        shape=f"{list(gray.shape)} + {list(gray1.shape)} u8 -> u8")]
+
+    # K6 on the main path's stacked level-1 planes and the bank's tables
+    sources = [gray if n == "ColorGradient" else
+               torch.as_tensor(depths_np.astype(np.int32), device=dev)
+               for n in det.modality_names]
+    qs = quantize_pyramids_batched(sources, det.modality_names, 2, det.dn_params,
+                                   det.cg_params)
+    t1 = det.t_at_level[1]
+    D = torch.cat([decimate(response.response_spread_batched(q, t1), t1) for q in qs[1]],
+                  dim=1)
+    gh, gw = qs[1][0].shape[1] // t1, qs[1][0].shape[2] // t1
+    tables = pd.bank_tensors(det.get_bank())[0].coarse_tables
+    rng = np.random.RandomState(8)
+    D_odd = torch.as_tensor(rng.randint(0, 5, (2, D.shape[1], 31, 43)), dtype=torch.int8,
+                            device=dev)
+    for Dt, oh, ow in ((D, gh, gw), (D_odd, 29, 37)):
+        compare(f"coarse_sweep {tuple(Dt.shape)} -> {oh}x{ow}",
+                refine.coarse_sweep(Dt, *tables, oh, ow),
+                refine.coarse_sweep_plain(Dt, *tables, oh, ow))
+    log(f"kernel coarse_sweep: equal to twin at D {tuple(D.shape)} with tables "
+        f"{tuple(tables[0].shape)} and at D {tuple(D_odd.shape)}")
+    recs.append(dict(
+        name="coarse_sweep", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/coarse_sweep.cu",
+        replaces="object_detector_6d_tpu/ops/refine_pallas.py:162",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: refine.coarse_sweep(D, *tables, gh, gw)),
+        plain_ms=cuda_ms(lambda: refine.coarse_sweep_plain(D, *tables, gh, gw), reps=5),
+        shape=f"D {list(D.shape)} i8, tables {list(tables[0].shape)} -> "
+              f"[{D.shape[0]},{tables[0].shape[0]},{gh},{gw}] i32"))
+    for r in recs:
+        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms "
+            f"({r['shape']}; {gpu})")
+    return recs
+
+
+def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
+    """K2-K5 against their twins on the card. Returns their records."""
     from object_detector_6d_tpu_torch.ops import quantize, refine, response
     from object_detector_6d_tpu_torch.ops.geometry import FusedScene
 
@@ -204,14 +301,7 @@ def kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
     d_main = torch.as_tensor(depths_np.astype(np.int32), device=dev)
     H, W = d_main.shape[1:]
     oh, ow = ODD_HW
-    d_odd = torch.nn.functional.pad(d_main[:2], (0, 1, 0, 0))[:, :oh, :ow].contiguous()
-    d_odd[:, :, -1] = d_odd[:, :, -2]
-
-    def compare(name, got, want):
-        if not torch.equal(got, want):
-            diff = (got.to(torch.float64) - want.to(torch.float64)).abs().max().item()
-            raise AssertionError(f"{name}: kernel != twin (max abs diff {diff})")
-        return 0.0
+    d_odd = odd_frames(d_main)
 
     # K2 depth-normal quantize
     err = 0.0
@@ -256,10 +346,7 @@ def kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
     Hd, Wd = -(-H // 5), -(-W // 5)
     Hp2 = 1 << (max(Hd + 17, 32) - 1).bit_length()
     Wp2 = 1 << (max(Wd + 17, 128) - 1).bit_length()
-    Rp = torch.nn.functional.pad(R0.to(torch.int8), (0, Wd * 5 - W, 0, Hd * 5 - H))
-    D = (Rp.reshape(B, 8, Hd, 5, Wd, 5).permute(0, 1, 3, 5, 2, 4)
-         .reshape(B, 200, Hd, Wd))
-    D = torch.nn.functional.pad(D, (0, Wp2 - Wd, 0, Hp2 - Hd)).contiguous()
+    D = torch.nn.functional.pad(decimate(R0, 5), (0, Wp2 - Wd, 0, Hp2 - Hd)).contiguous()
     plane_b, dr_b, dc_b, n_b = (a[0] for a in bank_args.feat_arrays)
     rng = np.random.RandomState(1)
     nT = plane_b.shape[0]
@@ -330,6 +417,164 @@ def kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
     return recs
 
 
+def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious, gpu):
+    """The path's main run (launch counts from 0, ground-truth gates, ms
+    per batch), then card against CPU. Returns (launches, ms per batch)."""
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    results = pd.detect_fused_batch(depths, K, rgbs)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"[{label}] main path launches: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[{label}] {name} was not launched by the main path")
+    if pd.counters.counts.get("overflow", 0):
+        raise AssertionError(f"[{label}] candidate overflow")
+    found, spurious = ground_truth_stats(results, gts)
+    per_class = {}
+    for poses in results:
+        for p in poses:
+            per_class[p.class_id] = per_class.get(p.class_id, 0) + 1
+    log(f"[{label}] detections over {B} frames: {per_class}; found within "
+        f"{GT_T_M * 1e3:g} mm / {GT_DEG:g} deg: objA {found['objA']}/{B}, objB "
+        f"{found['objB']}/{B} (reference {ref_found}); objB poses off "
+        f"truth: {len(spurious['objB'])} (reference {ref_spurious}) "
+        f"(frame, mm, deg): {spurious['objB']}")
+    if spurious["objA"]:
+        raise AssertionError(f"[{label}] objA poses off the ground truth (frame, mm, deg): "
+                             f"{spurious['objA']}")
+    if found["objA"] < 0.9 * B:
+        raise AssertionError(f"[{label}] objA found in {found['objA']}/{B} frames (< 90%)")
+    if (abs(found["objB"] - ref_found) > OBJB_SLACK
+            or abs(len(spurious["objB"]) - ref_spurious) > OBJB_SLACK):
+        raise AssertionError(f"[{label}] objB: found {found['objB']}, off truth "
+                             f"{len(spurious['objB'])}; the reference's "
+                             f"{ref_found} / {ref_spurious} +- {OBJB_SLACK}")
+
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd.detect_fused_batch(depths, K, rgbs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    batch_ms = statistics.median(times[1:])
+    log(f"[{label}] time detect_fused_batch: median {batch_ms:.2f} ms per B={B} batch "
+        f"of 480x640 frames, numpy in (5 runs after 1 warm-up; {gpu}); runs "
+        f"{[round(t, 2) for t in times]}")
+
+    # card versus CPU (the twins): the match program on all frames
+    # (exact), the whole path on the first 2
+    det = pd.detector
+    cpu_pd = PoseDetector(detector=det, params=pd.params, model_points=pd.model_points,
+                          device="cpu")
+    cpu_pd.views = pd.views
+    H, W = depths.shape[1:]
+    prog, _ = pd.program(H, W, K)
+    cpu_prog, _ = cpu_pd.program(H, W, K)
+    bank = det.get_bank()
+    d_cpu = torch.as_tensor(depths.astype(np.int32))
+    src_cpu = [torch.as_tensor(rgbs) if n == "ColorGradient" else d_cpu
+               for n in det.modality_names]
+    with torch.no_grad():
+        m_cuda = prog.match_program([s.to(pd.device) for s in src_cpu],
+                                    *pd.bank_tensors(bank)[0], THRESHOLD).cpu()
+        m_cpu = cpu_prog.match_program(src_cpu, *cpu_pd.bank_tensors(bank)[0], THRESHOLD)
+    if not torch.equal(m_cuda, m_cpu):
+        bad = (m_cuda != m_cpu).any(-1).any(-1).nonzero().flatten().tolist()
+        raise AssertionError(f"[{label}] match program card != cpu in frames {bad}")
+    log(f"[{label}] card vs cpu: match program [B,5,K+1] equal on all {B} frames "
+        f"(n_above per frame {m_cpu[:, 0, -1].to(torch.int64).tolist()})")
+    # the main run's first 2 frames against the CPU's (whose results do
+    # not depend on the batch size; the card's float sums may, see PERF.md)
+    got_cpu = cpu_pd.detect_fused_batch(depths[:2], K, None if rgbs is None else rgbs[:2])
+    worst_t = worst_r = 0.0
+    for b, (pc, pg) in enumerate(zip(got_cpu, results[:2])):
+        if [p.class_id for p in pc] != [p.class_id for p in pg]:
+            raise AssertionError(f"[{label}] frame {b}: classes {[p.class_id for p in pc]} "
+                                 f"(cpu) vs {[p.class_id for p in pg]} (cuda)")
+        for a, c in zip(pc, pg):
+            worst_t = max(worst_t, float(np.abs(a.pose[:3, 3] - c.pose[:3, 3]).max()))
+            worst_r = max(worst_r, rot_deg(a.pose[:3, :3], c.pose[:3, :3]))
+    if worst_t > XDEV_T_M or worst_r > XDEV_DEG:
+        raise AssertionError(f"[{label}] card vs cpu: {worst_t * 1e3:.3f} mm, "
+                             f"{worst_r:.3f} deg")
+    log(f"[{label}] card vs cpu on 2 frames: same classes, max |dt| {worst_t * 1e3:.4f} mm, "
+        f"max rotation {worst_r:.4f} deg")
+    return launches, batch_ms
+
+
+def run(dev, gpu: str) -> None:
+    from object_detector_6d_tpu_torch.api.detector import Detector
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+    from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
+    from object_detector_6d_tpu_torch.data.synthetic import synthetic_bank
+    from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
+
+    # phase 2: build
+    t0 = time.time()
+    kernels.library()
+    log(f"build: {time.time() - t0:.1f} s -> {kernels.build_info['path']}")
+    for line in kernels.build_info.get("log", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    scenes = scenes_module()
+    K = scenes.K_DEFAULT
+    params = DetectParams(match_threshold=THRESHOLD, max_hypotheses=16,
+                          icp=ICPParams(iterations=32, num_levels=4,
+                                        solves_per_assoc=2, finest_assoc=2),
+                          num_seeds=2, fine_compact=8)
+
+    def train(det):
+        pd = PoseDetector(detector=det, params=params, model_points=512, device=dev)
+        t0 = time.time()
+        for cid, scale in (("objA", 1.0), ("objB", 0.78)):
+            dep, gray, mask = scenes.snowman_scene(scale=scale)
+            rgb = np.repeat(gray[..., None], 3, axis=2)
+            if pd.add_view(cid, dep, K, mask.astype(np.uint8) * 255, rgb=rgb) != 0:
+                raise AssertionError(f"add_view {cid} failed")
+        log(f"train {det.modality_names}: {det.num_templates()} templates, 2 classes "
+            f"with views ({time.time() - t0:.1f} s on the host)")
+        return pd
+
+    # phase 3: the two-modality path (the reference's default Detector)
+    pd2 = train(synthetic_bank(n_classes=12, per_class=10, bbox_px=120, seed=0,
+                               detector=Detector()))
+    depths2, rgbs2, gts2 = make_frames(scenes, K, B, seed=SEED2)
+    pd2.detect_fused_batch(depths2[:2], K, rgbs2[:2])  # the bank on the card
+    recs = color_kernel_checks(dev, pd2, rgbs2, depths2, gpu)
+    counted2 = (quantize.cg_quantize_batched, quantize.dn_quantize_batched,
+                response.response_spread_batched, refine.coarse_sweep,
+                refine.refine_sweep_batched, geometry.FusedScene)
+    launches, _ = drive_path("two-modality", pd2, depths2, rgbs2, gts2, K, counted2,
+                             REF2_OBJB_FOUND, REF2_OBJB_SPURIOUS, gpu)
+
+    # phase 4: the depth-only path
+    pd = train(add_distractors(Detector(modalities=("DepthNormal",))))
+    det = pd.detector
+    depths, _, gts = make_frames(scenes, K, B, seed=SEED)
+    pd.detect_fused_batch(depths[:2], K)
+    prog, _ = pd.program(480, 640, K)
+    recs += depth_kernel_checks(dev, depths, K, pd.bank_tensors(det.get_bank())[0],
+                                prog.fused_scene, gpu)
+    counted = (quantize.dn_quantize_batched, response.response_spread_batched,
+               refine.coarse_sweep, refine.refine_sweep_batched, geometry.FusedScene)
+    drive_path("depth-only", pd, depths, None, gts, K, counted, REF_OBJB_FOUND,
+               REF_OBJB_SPURIOUS, gpu)
+
+    for r in recs:
+        r["launches"] = launches[r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms")
+    log(gpu)
+    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -343,136 +588,6 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
-
-def run(dev, gpu: str) -> None:
-    from object_detector_6d_tpu_torch.api.detector import Detector
-    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
-    from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
-    from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
-    from object_detector_6d_tpu_torch.quant.features import Feature, Template
-
-    # phase 2: build
-    t0 = time.time()
-    kernels.library()
-    log(f"build: {time.time() - t0:.1f} s -> {kernels.build_info['path']}")
-    for line in kernels.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-
-    # training: the port's own add_view for objA/objB + distractors
-    scenes = scenes_module()
-    K = scenes.K_DEFAULT
-    params = DetectParams(match_threshold=THRESHOLD, max_hypotheses=16,
-                          icp=ICPParams(iterations=32, num_levels=4,
-                                        solves_per_assoc=2, finest_assoc=2),
-                          num_seeds=2, fine_compact=8)
-    det = Detector(modalities=("DepthNormal",))
-    for cid, pyrs in distractor_templates().items():
-        for pyr in pyrs:
-            det.add_synthetic_template(
-                [Template(w, h, lvl, [Feature(int(x), int(y), int(l)) for x, y, l in f])
-                 for w, h, lvl, f in pyr], cid)
-    pd = PoseDetector(detector=det, params=params, model_points=512, device=dev)
-    t0 = time.time()
-    for cid, scale in (("objA", 1.0), ("objB", 0.78)):
-        dep, _, mask = scenes.snowman_scene(scale=scale)
-        if pd.add_view(cid, dep, K, mask.astype(np.uint8) * 255) != 0:
-            raise AssertionError(f"add_view {cid} failed")
-    log(f"train: {det.num_templates()} templates, 2 classes with views "
-        f"({time.time() - t0:.1f} s on the host)")
-    depths, gts = make_frames(scenes, K, B, seed=SEED)
-
-    # phase 3: kernels vs twins (warm the program first so the bank and
-    # the fused scene exist on the card)
-    pd.detect_fused_batch(depths[:2], K)
-    prog, _ = pd.program(480, 640, K)
-    bank_args = pd.bank_tensors(pd.detector.get_bank())[0]
-    recs = kernel_checks(dev, depths, K, bank_args, prog.fused_scene, gpu)
-
-    # phase 4: the main path, counted
-    counted = (quantize.dn_quantize_batched, response.response_spread_batched,
-               refine.refine_sweep_batched, geometry.FusedScene)
-    for fn in counted:
-        fn.launches = 0
-    torch.cuda.synchronize()
-    results = pd.detect_fused_batch(depths, K)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counted}
-    log(f"main path launches: {launches}")
-    for r in recs:
-        r["launches"] = launches[r["name"]]
-        if r["launches"] <= 0 and dev.type == "cuda":
-            raise AssertionError(f"{r['name']} was not launched by the main path")
-    if pd.counters.counts.get("overflow", 0):
-        raise AssertionError("candidate overflow")
-    found, spurious = ground_truth_stats(results, gts)
-    per_class = {}
-    for poses in results:
-        for p in poses:
-            per_class[p.class_id] = per_class.get(p.class_id, 0) + 1
-    log(f"detections over {B} frames: {per_class}; found within "
-        f"{GT_T_M * 1e3:g} mm / {GT_DEG:g} deg: objA {found['objA']}/{B}, objB "
-        f"{found['objB']}/{B} (reference {REF_OBJB_FOUND}); objB poses off "
-        f"truth: {len(spurious['objB'])} (reference {REF_OBJB_SPURIOUS}) "
-        f"(frame, mm, deg): {spurious['objB']}")
-    if spurious["objA"]:
-        raise AssertionError(f"objA poses off the ground truth (frame, mm, deg): "
-                             f"{spurious['objA']}")
-    if found["objA"] < 0.9 * B:
-        raise AssertionError(f"objA found in {found['objA']}/{B} frames (< 90%)")
-    if (found["objB"] < REF_OBJB_FOUND - OBJB_SLACK
-            or len(spurious["objB"]) > REF_OBJB_SPURIOUS + OBJB_SLACK):
-        raise AssertionError(f"objB: found {found['objB']}, off truth "
-                             f"{len(spurious['objB'])}; the reference's "
-                             f"{REF_OBJB_FOUND} / {REF_OBJB_SPURIOUS} +- {OBJB_SLACK}")
-
-    times = []
-    for i in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pd.detect_fused_batch(depths, K)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    batch_ms = statistics.median(times[1:])
-    log(f"time detect_fused_batch: median {batch_ms:.2f} ms per B={B} batch "
-        f"of 480x640 frames (5 runs after 1 warm-up; {gpu}); runs "
-        f"{[round(t, 2) for t in times]}")
-
-    # phase 5: card versus CPU (the twins): the match program on all
-    # frames (exact), the whole path on the first 2
-    cpu_pd = PoseDetector(detector=det, params=params, model_points=512, device="cpu")
-    cpu_pd.views = pd.views
-    cpu_prog, _ = cpu_pd.program(480, 640, K)
-    cpu_args = cpu_pd.bank_tensors(det.get_bank())[0]
-    d_cpu = torch.as_tensor(depths.astype(np.int32))
-    with torch.no_grad():
-        m_cuda = prog.match_program([d_cpu.to(dev)], *bank_args, THRESHOLD).cpu()
-        m_cpu = cpu_prog.match_program([d_cpu], *cpu_args, THRESHOLD)
-    if not torch.equal(m_cuda, m_cpu):
-        bad = (m_cuda != m_cpu).any(-1).any(-1).nonzero().flatten().tolist()
-        raise AssertionError(f"match program card != cpu in frames {bad}")
-    log(f"card vs cpu: match program [B,5,K+1] equal on all {B} frames "
-        f"(n_above per frame {m_cpu[:, 0, -1].to(torch.int64).tolist()})")
-    got_cuda = pd.detect_fused_batch(depths[:2], K)
-    got_cpu = cpu_pd.detect_fused_batch(depths[:2], K)
-    worst_t = worst_r = 0.0
-    for b, (pc, pg) in enumerate(zip(got_cpu, got_cuda)):
-        if [p.class_id for p in pc] != [p.class_id for p in pg]:
-            raise AssertionError(f"frame {b}: classes {[p.class_id for p in pc]} (cpu) "
-                                 f"vs {[p.class_id for p in pg]} (cuda)")
-        for a, c in zip(pc, pg):
-            worst_t = max(worst_t, float(np.abs(a.pose[:3, 3] - c.pose[:3, 3]).max()))
-            worst_r = max(worst_r, rot_deg(a.pose[:3, :3], c.pose[:3, :3]))
-    if worst_t > XDEV_T_M or worst_r > XDEV_DEG:
-        raise AssertionError(f"card vs cpu: {worst_t * 1e3:.3f} mm, {worst_r:.3f} deg")
-    log(f"card vs cpu on 2 frames: same classes, max |dt| {worst_t * 1e3:.4f} mm, "
-        f"max rotation {worst_r:.4f} deg")
-
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms")
-    log(gpu)
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
 
 
 if __name__ == "__main__":

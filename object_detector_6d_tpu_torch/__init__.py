@@ -5,14 +5,15 @@ with the same subpackage layout and module names. It runs on one NVIDIA
 H100 (hand-written ``sm_90a`` kernels under ``csrc/``) or on the CPU,
 where every kernel wrapper uses its plain PyTorch twin.
 
-This slice carries the depth-only fused detect path:
+It carries the fused detect path, with the reference's two modalities
+(ColorGradient + DepthNormal) or either one alone:
 
-    PoseDetector(detector=Detector(modalities=("DepthNormal",)), device="cuda")
-    .add_view(...)              training (template extraction + ICP model)
-    .detect_fused_batch(...)    quantize -> response maps -> coarse sweep
-                                -> top-K -> 16x16 refine -> geometry
-                                -> hypothesis lift -> projective ICP
-                                -> device cluster NMS -> [Pose]
+    PoseDetector(detector=Detector(), device="cuda")
+    .add_view(class_id, depth, K, mask, rgb)      training (templates + ICP model)
+    .detect_fused_batch(depths, K, rgbs)          quantize -> response maps
+                                -> coarse sweep -> top-K -> 16x16 refine
+                                -> geometry -> hypothesis lift
+                                -> projective ICP -> device cluster NMS -> [Pose]
 
 The package imports ``torch`` and numpy, never ``jax`` nor the
 reference package. What is still to port is listed in ROADMAP.md.

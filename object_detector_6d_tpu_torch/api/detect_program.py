@@ -1,7 +1,8 @@
 """Fused frame-batched detect: match -> geometry -> lift -> ICP -> NMS
 (port of object_detector_6d_tpu/api/detect_program.py, single device).
 
-    depth [B, H, W] -> match program (match/program.py, top-K candidates)
+    sources (one batch per modality: [B, H, W, 3] u8 BGR, [B, H, W] depth)
+        -> match program (match/program.py, top-K candidates)
         -> fused geometry (K5): cloud + FALS normals + packed scene
         -> hypothesis lift: per candidate, depth quantiles of the match
            window seed up to S translation hypotheses
@@ -248,6 +249,7 @@ def make_detect_program(
     t_at_level: Sequence[int],
     frame_shape: Tuple[int, int],
     dn_params,
+    cg_params,
     K_mat: np.ndarray,
     max_candidates: int = 16,
     icp: Optional[ICPParams] = None,
@@ -261,10 +263,12 @@ def make_detect_program(
 ):
     """Build the batched detect program for one (frame shape, K) pair.
 
-    Returns ``run(depths [B, H, W], bank_args, views, threshold,
-    cls_of_tid [nT], max_residual, trans_thr) -> [B, K*CLUSTER_SLOT+2]``
-    f32: the device cluster-NMS record of make_cluster_stage. ``bank_args``
-    is a match.program.BankArgs on the same device.
+    Returns ``run(sources, bank_args, views, threshold, cls_of_tid [nT],
+    max_residual, trans_thr) -> [B, K*CLUSTER_SLOT+2]`` f32: the device
+    cluster-NMS record of make_cluster_stage. ``sources`` holds one batch
+    per modality, in ``modality_names`` order; geometry reads the first
+    one that is not ColorGradient (the depth). ``bank_args`` is a
+    match.program.BankArgs on the same device.
     """
     if lift_impl not in ("hist", "sort"):
         raise ValueError(f"lift_impl {lift_impl!r}")
@@ -278,8 +282,9 @@ def make_detect_program(
     win = lift_window
     dev = torch.device(device)
     qlevels = torch.tensor([0.25, 0.5, 0.75][:S], dtype=torch.float32, device=dev)
+    depth_idx = next(i for i, n in enumerate(modality_names) if n != "ColorGradient")
     match_prog = mp.make_match_program(modality_names, t_at_level, frame_shape,
-                                       dn_params, max_candidates)
+                                       dn_params, cg_params, max_candidates)
     fscene = FusedScene(H, W, K_mat, device=dev)
 
     all_levels = list(range(icp.num_levels - 1, -1, -1))
@@ -413,11 +418,12 @@ def make_detect_program(
         return final, best_res, keep_out
 
     @torch.no_grad()
-    def run(depths, bank_args, views: PackedViews, threshold, cls_of_tid,
+    def run(sources, bank_args, views: PackedViews, threshold, cls_of_tid,
             max_residual, trans_thr):
+        depths = sources[depth_idx]
         # named spans for torch.profiler traces (no cost without a profiler)
         with record_function("detect.match"):
-            packed = match_prog([depths], *bank_args, threshold)
+            packed = match_prog(sources, *bank_args, threshold)
         with record_function("detect.geometry"):
             planes = fscene(depths)  # [B, 8, H, W]
             z_img = planes[:, 2]

@@ -1,14 +1,12 @@
 """LINEMOD Detector, training side + packed bank (port of
-object_detector_6d_tpu/api/detector.py, depth-only).
+object_detector_6d_tpu/api/detector.py).
 
 ``add_template`` / ``add_synthetic_template`` build per-class template
 pyramids on the host; ``get_bank`` packs every class into the global bank
 the fused program sweeps. Templates are stored interleaved per level
 ([mod0 L0, mod1 L0, mod0 L1, ...]), the oracle's TemplatePyramid layout.
-
-Only the DepthNormal modality is ported; ColorGradient raises (ROADMAP
-queue 1 item 2), which is also why the default modality list is
-("DepthNormal",) rather than the reference's two modalities.
+The modalities default to the reference's ("ColorGradient",
+"DepthNormal"); either may be left out.
 """
 
 from __future__ import annotations
@@ -17,28 +15,30 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from object_detector_6d_tpu_torch.core.config import DepthNormalParams
+from object_detector_6d_tpu_torch.core.config import ColorGradientParams, DepthNormalParams
 from object_detector_6d_tpu_torch.match import program as mp
 from object_detector_6d_tpu_torch.quant.features import Template, crop_templates
-from object_detector_6d_tpu_torch.quant.pyramid import DepthNormalPyramid
+from object_detector_6d_tpu_torch.quant.pyramid import ColorGradientPyramid, DepthNormalPyramid
+
+MODALITIES = ("ColorGradient", "DepthNormal")
 
 
 class Detector:
-    """Template bank + training for the depth-only LINEMOD detector."""
+    """Template bank + training for the LINEMOD detector."""
 
     def __init__(
         self,
-        modalities: Sequence[str] = ("DepthNormal",),
+        modalities: Sequence[str] = MODALITIES,
         t_at_level: Sequence[int] = (5, 8),
+        color_gradient_params: Optional[ColorGradientParams] = None,
         depth_normal_params: Optional[DepthNormalParams] = None,
     ):
         for name in modalities:
-            if name != "DepthNormal":
-                raise NotImplementedError(
-                    f"modality {name!r} is not ported yet (ROADMAP queue 1 "
-                    "item 2); use modalities=('DepthNormal',)")
+            if name not in MODALITIES:
+                raise ValueError(f"unknown modality {name!r}")
         self.modality_names = tuple(modalities)
         self.t_at_level = tuple(t_at_level)
+        self.cg_params = color_gradient_params or ColorGradientParams()
         self.dn_params = depth_normal_params or DepthNormalParams()
         # class_id -> list of template pyramids (interleaved level-major)
         self.class_templates: Dict[str, List[List[Template]]] = {}
@@ -57,9 +57,9 @@ class Detector:
     def add_template(
         self, sources: Sequence[np.ndarray], class_id: str, object_mask: np.ndarray
     ) -> Tuple[int, Optional[Tuple[int, int, int, int]]]:
-        """Returns (template_id, bbox) or (-1, None) on failure."""
-        pyrs = [DepthNormalPyramid(src, self.dn_params, self.pyramid_levels,
-                                   object_mask) for src in sources]
+        """Returns (template_id, bbox) or (-1, None) on failure; ``sources``
+        holds one image per modality (BGR u8 or depth u16)."""
+        pyrs = self._build_pyramids(sources, object_mask)
         tp: List[Template] = []
         for lvl in range(self.pyramid_levels):
             for p in pyrs:
@@ -69,6 +69,17 @@ class Detector:
                 tp.append(t)
         bbox = crop_templates(tp)
         return self._store(tp, class_id), bbox
+
+    def _build_pyramids(self, sources, mask=None):
+        pyrs = []
+        for name, src in zip(self.modality_names, sources):
+            if name == "ColorGradient":
+                pyrs.append(ColorGradientPyramid(src, self.cg_params,
+                                                 self.pyramid_levels, mask))
+            else:
+                pyrs.append(DepthNormalPyramid(src, self.dn_params,
+                                               self.pyramid_levels, mask))
+        return pyrs
 
     def add_synthetic_template(self, templates: Sequence[Template],
                                class_id: str) -> int:

@@ -1,11 +1,16 @@
-"""End-to-end depth-only 6D detection (port of
-object_detector_6d_tpu/api/pipeline.py ``PoseDetector``, fused path).
+"""End-to-end 6D detection (port of object_detector_6d_tpu/api/pipeline.py
+``PoseDetector``, fused path).
 
-    PoseDetector(detector=Detector(modalities=("DepthNormal",)), device="cuda")
-    .add_view(class_id, depth, K, mask[, view_pose])   training
-    .detect_fused_batch(depths [B, H, W], K)           -> [[Pose]] per frame
+    PoseDetector(detector=Detector(), device="cuda")
+    .add_view(class_id, depth, K, mask, rgb[, view_pose])   training
+    .detect_fused_batch(depths [B, H, W], K, rgbs [B, H, W, 3])
+                                                  -> [[Pose]] per frame
 
-Training (``add_view``) runs on the host: LINEMOD templates through
+The default Detector has the reference's two modalities (ColorGradient on
+the u8 BGR frames, DepthNormal on the u16 depth); a detector with
+ColorGradient needs ``rgb`` / ``rgbs`` and raises ValueError without
+them, a depth-only one (``Detector(modalities=("DepthNormal",))``) takes
+none. Training (``add_view``) runs on the host: LINEMOD templates through
 Detector.add_template, plus the view's masked cloud + FALS normals
 (sampled to ``model_points``) as the ICP model. Detection runs the fused
 program of api/detect_program.py on ``device`` and unpacks the device
@@ -50,7 +55,7 @@ class CandidateOverflow(RuntimeError):
 
 
 class PoseDetector:
-    """Template-based 6D object detector, depth-only fused path."""
+    """Template-based 6D object detector, fused path."""
 
     def __init__(
         self,
@@ -81,11 +86,13 @@ class PoseDetector:
         depth_u16: np.ndarray,
         K: np.ndarray,
         object_mask: np.ndarray,
+        rgb: Optional[np.ndarray] = None,
         view_pose: Optional[np.ndarray] = None,
     ) -> int:
         """Register one training view; returns the template id or -1."""
         depth_u16 = np.asarray(depth_u16)
-        tid, bbox = self.detector.add_template([depth_u16], class_id, object_mask)
+        sources = self._sources(rgb, depth_u16)
+        tid, bbox = self.detector.add_template(sources, class_id, object_mask)
         if tid < 0:
             return -1
         d = torch.as_tensor(depth_u16.astype(np.int32))
@@ -115,21 +122,38 @@ class PoseDetector:
         )
         return tid
 
+    def _sources(self, rgb, depth):
+        """One source per modality, in the detector's order."""
+        sources = []
+        for name in self.detector.modality_names:
+            if name == "ColorGradient":
+                if rgb is None:
+                    raise ValueError("detector has a ColorGradient modality; rgb required")
+                sources.append(rgb)
+            else:
+                sources.append(depth)
+        return sources
+
     # ------------------------------------------------------------------
     # detection
     # ------------------------------------------------------------------
 
-    def detect_fused(self, depth_u16, K, class_ids: Optional[Sequence[str]] = None,
+    def detect_fused(self, depth_u16, K, rgb=None,
+                     class_ids: Optional[Sequence[str]] = None,
                      match_threshold: Optional[float] = None) -> List[Pose]:
         """One frame through the fused program."""
-        return self.detect_fused_batch(np.asarray(depth_u16)[None], K,
-                                       class_ids, match_threshold)[0]
+        return self.detect_fused_batch(
+            np.asarray(depth_u16)[None], K,
+            None if rgb is None else np.asarray(rgb)[None],
+            class_ids, match_threshold)[0]
 
-    def detect_fused_batch(self, depths, K, class_ids: Optional[Sequence[str]] = None,
+    def detect_fused_batch(self, depths, K, rgbs=None,
+                           class_ids: Optional[Sequence[str]] = None,
                            match_threshold: Optional[float] = None) -> List[List[Pose]]:
-        """B frames sharing one camera through one program call."""
+        """B frames sharing one camera through one program call: depths
+        [B, H, W] u16, rgbs [B, H, W, 3] u8 BGR (numpy or tensors)."""
         return self.detect_fused_finalize(
-            self.detect_fused_dispatch(depths, K, class_ids, match_threshold))
+            self.detect_fused_dispatch(depths, K, rgbs, class_ids, match_threshold))
 
     def program(self, H: int, W: int, K):
         """The fused detect program for (H, W, K) on this detector's device
@@ -143,7 +167,8 @@ class PoseDetector:
         if prog is None:
             prog = dp.make_detect_program(
                 self.detector.modality_names, self.detector.t_at_level, (H, W),
-                self.detector.dn_params, np.asarray(K, np.float64),
+                self.detector.dn_params, self.detector.cg_params,
+                np.asarray(K, np.float64),
                 max_candidates=K_cap, icp=p.icp, lift_window=self.scene_window,
                 num_seeds=p.num_seeds, fine_compact=p.fine_compact,
                 lift_impl=self.lift_impl, device=self.device)
@@ -175,18 +200,23 @@ class PoseDetector:
         fx = float(np.asarray(K)[0, 0])
         return self.bank_tensors(bank)[2], p.max_residual, p.nms_radius_px / fx
 
-    def detect_fused_dispatch(self, depths, K, class_ids: Optional[Sequence[str]] = None,
+    def detect_fused_dispatch(self, depths, K, rgbs=None,
+                              class_ids: Optional[Sequence[str]] = None,
                               match_threshold: Optional[float] = None):
         """Launch the fused program; returns a handle for
         :meth:`detect_fused_finalize` (PyTorch queues the device work, so
         the call returns before the card finishes)."""
         if isinstance(depths, torch.Tensor):
-            validate_frame(np.empty(tuple(depths.shape[1:3])), K)
+            validate_frame(np.empty(tuple(depths.shape[1:3])), K,
+                           None if rgbs is None else np.empty(tuple(rgbs.shape[1:])))
             d = depths.to(self.device)
         else:
             depths = np.asarray(depths)
-            validate_frame(depths[0], K)
+            validate_frame(depths[0], K, None if rgbs is None else np.asarray(rgbs)[0])
             d = torch.as_tensor(depths.astype(np.int32)).to(self.device)
+        if rgbs is not None and "ColorGradient" in self.detector.modality_names:
+            rgbs = torch.as_tensor(rgbs, dtype=torch.uint8).to(self.device)
+        sources = self._sources(rgbs, d)
         B, H, W = d.shape
         p = self.params
         threshold = p.match_threshold if match_threshold is None else match_threshold
@@ -195,7 +225,7 @@ class PoseDetector:
             return ("empty", B)
         prog, K_cap = self.program(H, W, K)
         bargs, views, _ = self.bank_tensors(bank)
-        flat = prog(d, bargs, views, threshold, *self._nms_device_args(bank, K))
+        flat = prog(sources, bargs, views, threshold, *self._nms_device_args(bank, K))
         return (flat, B, K_cap, bank)
 
     def detect_fused_finalize(self, handle) -> List[List[Pose]]:

@@ -1,8 +1,12 @@
 """Build a PoseDetector from trained state given as plain numpy/python.
 
-The state is what a depth-only detector learns in training, in a form
-that either package can produce without importing the other:
+The state is what a detector learns in training, in a form that either
+package can produce without importing the other:
 
+* ``detector``: ``{"modalities": [...], "t_at_level": [t0, t1],
+  "color_gradient_params": {...}, "depth_normal_params": {...}}``, the
+  Detector's configuration (``detector_dict`` makes it from either
+  package's Detector);
 * ``templates``: ``{class_id: [pyramid, ...]}``, each pyramid a list of
   ``(width, height, pyramid_level, features [n, 3] int32 (x, y, label))``
   in the stored interleaved order;
@@ -21,7 +25,12 @@ import numpy as np
 
 from object_detector_6d_tpu_torch.api.detector import Detector
 from object_detector_6d_tpu_torch.api.pipeline import PoseDetector, _ViewRecord
-from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
+from object_detector_6d_tpu_torch.core.config import (
+    ColorGradientParams,
+    DepthNormalParams,
+    DetectParams,
+    ICPParams,
+)
 from object_detector_6d_tpu_torch.quant.features import Feature, Template
 
 
@@ -35,14 +44,20 @@ def _params(params) -> DetectParams:
 
 
 def pose_detector_from_state(
+    detector: Mapping,
     templates: Dict[str, Sequence[Sequence[tuple]]],
     views: Dict[Tuple[str, int], Mapping],
     params,
     model_points: int = 1024,
     device="cpu",
 ) -> PoseDetector:
-    """A depth-only PoseDetector holding the given templates and views."""
-    det = Detector(modalities=("DepthNormal",))
+    """A PoseDetector holding the given detector configuration, templates
+    and views."""
+    det = Detector(
+        modalities=tuple(detector["modalities"]),
+        t_at_level=tuple(detector["t_at_level"]),
+        color_gradient_params=ColorGradientParams(**detector["color_gradient_params"]),
+        depth_normal_params=DepthNormalParams(**detector["depth_normal_params"]))
     for cid, pyramids in templates.items():
         for pyr in pyramids:
             tp = []
@@ -68,3 +83,12 @@ def pose_detector_from_state(
 def params_dict(params) -> dict:
     """A DetectParams-like dataclass as the plain dict ``_params`` takes."""
     return dataclasses.asdict(params)
+
+
+def detector_dict(det) -> dict:
+    """Either package's Detector configuration as the plain dict
+    ``pose_detector_from_state`` takes."""
+    return {"modalities": list(det.modality_names),
+            "t_at_level": list(det.t_at_level),
+            "color_gradient_params": dataclasses.asdict(det.cg_params),
+            "depth_normal_params": dataclasses.asdict(det.dn_params)}

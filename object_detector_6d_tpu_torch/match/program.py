@@ -1,17 +1,23 @@
 """Fused frame-batched match program (port of
-object_detector_6d_tpu/match/program.py, depth-only).
+object_detector_6d_tpu/match/program.py), one or two modalities.
 
-    depth [B, H, W] -> quantize (K2) -> level-1 subsample -> spread +
-    response maps at both levels (K3) -> coarse sweep of the packed
-    template bank (float32 conv2d over the T1-decimated planes) -> span
-    mask, raw threshold, exact top-K -> 16x16 level-0 refinement (K4)
+    sources (per modality: [B, H, W, 3] u8 BGR or [B, H, W] depth)
+    -> quantize both pyramid levels (quantize_pyramids_batched: K1 for
+       ColorGradient at level 0 and on pyr_down_u8 at level 1; K2 for
+       DepthNormal, subsampled [::2, ::2] at level 1)
+    -> spread + response maps per level and modality (K3)
+    -> coarse sweep of the packed bank's sparse level-1 feature tables
+       over the T1-decimated planes of every modality (K6)
+    -> span mask, raw threshold, exact top-K
+    -> 16x16 level-0 refinement per modality (K4)
     -> [B, 5, K+1] packed candidates
 
 Rows of the output: x, y, similarity, global template id, keep; the last
 column carries the frame's count of above-threshold coarse candidates
 (overflow when > K). Same semantics, tie orders and integer paddings as
-the reference (``build_D`` pads to the reference's Hp2/Wp2, so tile
-indices are identical).
+the reference: K6's raw grid equals the reference main path's int8 conv
+over its one-hot ``kernels_low``, and ``build_D`` pads to the reference's
+Hp2/Wp2, so tile indices are identical.
 """
 
 from __future__ import annotations
@@ -22,9 +28,10 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from object_detector_6d_tpu_torch.ops.quantize import dn_quantize_batched
-from object_detector_6d_tpu_torch.ops.refine import refine_sweep_batched
+from object_detector_6d_tpu_torch.ops.quantize import cg_quantize_batched, dn_quantize_batched
+from object_detector_6d_tpu_torch.ops.refine import coarse_sweep, refine_sweep_batched
 from object_detector_6d_tpu_torch.ops.response import response_spread_batched
+from object_detector_6d_tpu_torch.quant.pyramid import pyr_down_u8
 
 
 @dataclasses.dataclass
@@ -33,9 +40,12 @@ class PackedBank:
 
     class_ids: List[str]  # per global template id
     local_tids: np.ndarray  # [nT] local id within class
-    # coarse level: per modality one-hot kernels over the T1-decimated
-    # response planes, [nT, 8*t1^2, kd, kd] (small integer counts)
-    kernels_low: List[np.ndarray]
+    # coarse level (K6): one sparse table over every modality's T1-decimated
+    # response planes stacked along the plane axis, per template its
+    # modality-0 features, then its modality-1 features: plane =
+    # (8*mod + label)*t1^2 + (y%t1)*t1 + x%t1, cell offset (y//t1, x//t1);
+    # plane/dr/dc [nT, F1], counts [nT]
+    coarse: Tuple[np.ndarray, ...]
     # level-0 sparse features per modality: plane/dr/dc [nT, F], counts [nT]
     feat_plane: List[np.ndarray]
     feat_dr: List[np.ndarray]
@@ -52,12 +62,31 @@ class PackedBank:
 class BankArgs(NamedTuple):
     """A PackedBank's arrays as tensors on one device."""
 
-    kernels_low: List[torch.Tensor]  # f32
+    coarse_tables: Tuple[torch.Tensor, ...]  # K6 plane, dr, dc [nT, F], n [nT]
     feat_arrays: Tuple[List[torch.Tensor], ...]  # plane, dr, dc, n (i32)
     nfeat_l0: torch.Tensor
     nfeat_l1: torch.Tensor
     sizes_l0: torch.Tensor
     sizes_l1: torch.Tensor
+
+
+def _sparse_tables(feats, t: int):
+    """Per-template tables of (x, y, label) features over the t-decimated
+    plane layout: plane = label*t^2 + (y%t)*t + x%t, dr = y//t, dc = x//t,
+    and counts."""
+    nT = len(feats)
+    F = max((len(fs) for fs in feats), default=1)
+    pla = np.zeros((nT, F), np.int32)
+    dra = np.zeros((nT, F), np.int32)
+    dca = np.zeros((nT, F), np.int32)
+    na = np.zeros((nT,), np.int32)
+    for i, fs in enumerate(feats):
+        na[i] = len(fs)
+        for j, (x, y, label) in enumerate(fs):
+            pla[i, j] = label * t * t + (y % t) * t + (x % t)
+            dra[i, j] = y // t
+            dca[i, j] = x // t
+    return pla, dra, dca, na
 
 
 def pack_bank(
@@ -85,44 +114,18 @@ def pack_bank(
                 nf[i] += len(t.features)
         nfeat.append(nf)
         sizes.append(sz)
-
-    # coarse one-hot kernels over the t1-decimated plane layout: channel =
-    # label*t1^2 + (fy%t1)*t1 + fx%t1, spatial offset (fy//t1, fx//t1)
     lowest = levels - 1
-    kernels_low: List[np.ndarray] = []
-    for mod in range(num_mod):
-        tmpls = [tp[lowest * num_mod + mod] for tp in all_tps]
-        kh = max((t.height for t in tmpls), default=0) + 1
-        kw = max((t.width for t in tmpls), default=0) + 1
-        kd = (max(kh, kw) - 1) // t1 + 1
-        K = np.zeros((nT, 8 * t1 * t1, kd, kd), np.float32)
-        for i, t in enumerate(tmpls):
-            for f in t.features:
-                plane = f.label * t1 * t1 + (f.y % t1) * t1 + (f.x % t1)
-                K[i, plane, f.y // t1, f.x // t1] += 1.0
-        kernels_low.append(K)
-
-    feat_plane, feat_dr, feat_dc, feat_n = [], [], [], []
-    for mod in range(num_mod):
-        tmpls = [tp[mod] for tp in all_tps]
-        F = max((len(t.features) for t in tmpls), default=1)
-        pla = np.zeros((nT, F), np.int32)
-        dra = np.zeros((nT, F), np.int32)
-        dca = np.zeros((nT, F), np.int32)
-        na = np.zeros((nT,), np.int32)
-        for i, t in enumerate(tmpls):
-            na[i] = len(t.features)
-            for j, f in enumerate(t.features):
-                pla[i, j] = f.label * t0 * t0 + (f.y % t0) * t0 + (f.x % t0)
-                dra[i, j] = f.y // t0
-                dca[i, j] = f.x // t0
-        feat_plane.append(pla)
-        feat_dr.append(dra)
-        feat_dc.append(dca)
-        feat_n.append(na)
-
-    return PackedBank(class_ids, np.array(local_tids, np.int32), kernels_low,
-                      feat_plane, feat_dr, feat_dc, feat_n, nfeat, sizes)
+    # modality m's labels offset by 8*m: its planes follow modality m-1's
+    coarse = _sparse_tables(
+        [[(f.x, f.y, 8 * mod + f.label) for mod in range(num_mod)
+          for f in tp[lowest * num_mod + mod].features] for tp in all_tps], t1)
+    f_plane, f_dr, f_dc, f_n = zip(*(
+        _sparse_tables([[(f.x, f.y, f.label) for f in tp[mod].features] for tp in all_tps],
+                       t0) for mod in range(num_mod)))
+    return PackedBank(
+        class_ids=class_ids, local_tids=np.array(local_tids, np.int32), coarse=coarse,
+        feat_plane=list(f_plane), feat_dr=list(f_dr), feat_dc=list(f_dc),
+        feat_n=list(f_n), nfeat=nfeat, sizes=sizes)
 
 
 def bank_args(bank: PackedBank, device) -> BankArgs:
@@ -130,11 +133,45 @@ def bank_args(bank: PackedBank, device) -> BankArgs:
         return torch.as_tensor(a, device=device)
 
     return BankArgs(
-        [t(k) for k in bank.kernels_low],
+        tuple(t(a) for a in bank.coarse),
         tuple([t(a) for a in arrs] for arrs in
               (bank.feat_plane, bank.feat_dr, bank.feat_dc, bank.feat_n)),
         t(bank.nfeat[0]), t(bank.nfeat[1]), t(bank.sizes[0]), t(bank.sizes[1]),
     )
+
+
+def quantize_pyramids_batched(sources_b, modality_names, levels, dn_params, cg_params):
+    """Quantized images [level][modality], each [B, H, W] u8: K1 per
+    ColorGradient level (``pyr_down_u8`` in between), K2 once per
+    DepthNormal source, subsampled [::2, ::2] per level. Any frame size."""
+    qs_b = [[None] * len(modality_names) for _ in range(levels)]
+    for m, (name, src_b) in enumerate(zip(modality_names, sources_b)):
+        if name == "ColorGradient":
+            img_b = src_b
+            for lvl in range(levels):
+                qs_b[lvl][m] = cg_quantize_batched(img_b, float(cg_params.weak_threshold))
+                if lvl + 1 < levels:
+                    img_b = pyr_down_u8(img_b)
+        elif name == "DepthNormal":
+            q_b = dn_quantize_batched(src_b, int(dn_params.distance_threshold),
+                                      int(dn_params.difference_threshold))
+            for lvl in range(levels):
+                qs_b[lvl][m] = q_b
+                if lvl + 1 < levels:
+                    q_b = q_b[:, ::2, ::2].contiguous()
+        else:
+            raise ValueError(f"unknown modality {name!r}")
+    return qs_b
+
+
+def decimate(R: torch.Tensor, t: int, hd: int, wd: int) -> torch.Tensor:
+    """[B, 8, h, w] responses -> [B, 8*t^2, hd, wd] T-decimated planes,
+    plane label*t^2 + (y%t)*t + x%t at cell (y//t, x//t) (zero-padded
+    partial cells)."""
+    B, _, h, w = R.shape
+    R = torch.nn.functional.pad(R, (0, wd * t - w, 0, hd * t - h))
+    return (R.reshape(B, 8, hd, t, wd, t).permute(0, 1, 3, 5, 2, 4)
+            .reshape(B, 8 * t * t, hd, wd))
 
 
 def exact_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -149,19 +186,16 @@ def make_match_program(
     t_at_level: Sequence[int],
     frame_shape: Tuple[int, int],
     dn_params,
+    cg_params,
     max_candidates: int = 64,
 ):
     """Build the frame-batched matcher.
 
-    Returns ``run(sources, kernels_low, feat_arrays, nfeat_l0, nfeat_l1,
+    Returns ``run(sources, coarse_tables, feat_arrays, nfeat_l0, nfeat_l1,
     sizes_l0, sizes_l1, threshold) -> [B, 5, K+1] f32`` where ``sources``
-    holds one [B, H, W] depth batch per modality.
+    holds one batch per modality: [B, H, W, 3] u8 BGR for ColorGradient,
+    [B, H, W] depth for DepthNormal (the rest is a BankArgs).
     """
-    if tuple(modality_names) != ("DepthNormal",):
-        raise NotImplementedError(
-            f"modalities {tuple(modality_names)}: this package matches the "
-            "DepthNormal modality only; ColorGradient is ROADMAP queue 1 "
-            "item 2 (K1 cg_quantize_batched + pyr_down_u8)")
     levels = len(t_at_level)
     if levels != 2:
         raise ValueError("the fused program supports 2-level pyramids")
@@ -184,50 +218,20 @@ def make_match_program(
     Wp2 = npow2(max(Wd + 17, 128))
     Hd1, Wd1 = -(-H1 // t1), -(-W1 // t1)
 
-    def decimate(R, t, hd, wd):
-        """[B, 8, h, w] -> [B, 8*t^2, hd, wd] (zero-padded partial cells)."""
-        B, _, h, w = R.shape
-        R = torch.nn.functional.pad(R, (0, wd * t - w, 0, hd * t - h))
-        return (R.reshape(B, 8, hd, t, wd, t).permute(0, 1, 3, 5, 2, 4)
-                .reshape(B, 8 * t * t, hd, wd))
-
     def compute_responses(sources_b):
-        """Quantize (K2) + spread/response (K3) at both levels."""
-        R0_b, R1_b = [], []
-        for src in sources_b:
-            q0 = dn_quantize_batched(src, int(dn_params.distance_threshold),
-                                     int(dn_params.difference_threshold))
-            q1 = q0[:, ::2, ::2].contiguous()
-            R0_b.append(response_spread_batched(q0, t0))
-            R1_b.append(response_spread_batched(q1, t1))
+        """Quantize (K1, K2) + spread/response (K3) at both levels."""
+        qs_b = quantize_pyramids_batched(sources_b, modality_names, levels,
+                                         dn_params, cg_params)
+        R0_b = [response_spread_batched(q, t0) for q in qs_b[0]]
+        R1_b = [response_spread_batched(q, t1) for q in qs_b[1]]
         return R0_b, R1_b
 
-    def coarse_stage(R1_b, kernels_low, nfeat_l1, sizes_l1, threshold):
-        raw = None
-        for mod in range(num_mod):
-            k = kernels_low[mod]  # [nT, 8*t1^2, kd, kd] f32
-            kd = k.shape[3]
-            # stride-T1 sweep == stride-1 conv over the decimated planes:
-            # score[t,r,c] = sum_f D[l*t1^2+(fy%t1)*t1+fx%t1, r+fy//t1, c+fx//t1]
-            D = decimate(R1_b[mod], t1, Hd1, Wd1).to(torch.float32)
-            need_h = gh + kd - 1
-            need_w = gw + kd - 1
-            D = torch.nn.functional.pad(
-                D, (0, max(0, need_w - Wd1), 0, max(0, need_h - Hd1)))
-            # float32 holds these sums exactly: responses are 0..4 and
-            # kernel cells small counts, so every partial sum stays far
-            # below 2^24. TF32 is switched off for the call (it would be
-            # exact too; this does not rely on it). cuDNN may still pick a
-            # Winograd or FFT algorithm, whose results sit within a small
-            # fraction of the integer: round, never truncate.
-            prev = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
-            try:
-                s = torch.nn.functional.conv2d(D, k)[:, :, :gh, :gw]
-            finally:
-                torch.backends.cudnn.allow_tf32 = prev
-            s = torch.round(s).to(torch.int32)
-            raw = s if raw is None else raw + s
+    def coarse_stage(R1_b, coarse_tables, nfeat_l1, sizes_l1, threshold):
+        # stride-T1 sweep == sparse sweep over the decimated planes:
+        # score[t,r,c] = sum_f D[l*t1^2+(fy%t1)*t1+fx%t1, r+fy//t1, c+fx//t1]
+        # with every modality's planes stacked along the plane axis (K6)
+        D = torch.cat([decimate(R.to(torch.int8), t1, Hd1, Wd1) for R in R1_b], dim=1)
+        raw = coarse_sweep(D, *coarse_tables, gh, gw)
         B, nT = raw.shape[0], raw.shape[1]
         dev = raw.device
         wf = (sizes_l1[:, 0] - 1) // t1 + 1
@@ -283,12 +287,14 @@ def make_match_program(
         n_col = n_above.to(torch.float32)[:, None, None].expand(B, 5, 1)
         return torch.cat([packed, n_col], dim=2)
 
-    def run(sources, kernels_low, feat_arrays, nfeat_l0, nfeat_l1, sizes_l0,
+    def run(sources, coarse_tables, feat_arrays, nfeat_l0, nfeat_l1, sizes_l0,
             sizes_l1, threshold):
+        if len(sources) != num_mod:
+            raise ValueError(f"{len(sources)} sources for modalities {tuple(modality_names)}")
         threshold = float(np.float32(threshold))
         R0_b, R1_b = compute_responses(sources)
         tids, valid, n_above, xs, ys = coarse_stage(
-            R1_b, kernels_low, nfeat_l1, sizes_l1, threshold)
+            R1_b, coarse_tables, nfeat_l1, sizes_l1, threshold)
         x2, y2, base_c, base_r = anchors_stage(tids, xs, ys, sizes_l0)
         feat_plane, feat_dr, feat_dc, feat_n = feat_arrays
         total16 = None

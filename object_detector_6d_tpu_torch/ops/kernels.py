@@ -43,6 +43,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: every entry returns int (a cudaError_t)
 _SIGNATURES = {
+    # bgr u8 [B,H,W,3], out u8, B, H, W, weak_threshold^2, stream
+    "odc_cg_quantize": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
     # depth i32, scratch u8, out u8, B, H, W, distance_thr, difference_thr, stream
     "odc_dn_quantize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q u8, out u8, B, H, W, T, dist_vals[5] (packed as 5 ints), stream
@@ -52,6 +54,9 @@ _SIGNATURES = {
     # depth i32, rays f32, minv f32, out f32, B, H, W, 1/fx, 1/fy, stream
     "odc_fused_scene": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
                         ctypes.c_float, _P],
+    # D i8, plane i32, dr i32, dc i32, nfeat i32, out i32, B, P, Hp, Wp, nT, F,
+    # out_h, out_w, stream
+    "odc_coarse_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,12 +1,21 @@
-"""Sparse 16x16 local-refinement sweep: kernel K4 and its plain twin
-(port of object_detector_6d_tpu/ops/refine_pallas.py ``refine_sweep_batched``).
+"""The two sparse sweeps of the match program: kernels K4 and K6 and
+their plain twins (port of object_detector_6d_tpu/ops/refine_pallas.py
+``refine_sweep_batched`` and ``coarse_sweep``).
+
+K4, the 16x16 local refinement at level 0:
 
     out[b, k] = sum_{f < nfeat[b, k]} D[b, plane[b,k,f], r0:r0+16, c0:c0+16]
 
+K6, the full-grid coarse sweep at level 1:
+
+    out[b, t, r, c] = sum_{f < nfeat[t]} D[b, plane[t,f], r+dr[t,f], c+dc[t,f]]
+
 A CPU tensor goes to the plain twin; a CUDA tensor launches
-csrc/refine_sweep.cu or raises. Unlike the TPU kernel, D's plane sizes
-need not be powers of two; instead the wrapper checks that every swept
-tile lies inside its plane.
+csrc/refine_sweep.cu or csrc/coarse_sweep.cu, or raises. Unlike the TPU
+kernels, D's plane sizes need not be powers of two. K4's wrapper checks
+that every swept tile lies inside its plane; K6 reads zero outside its
+planes (the zero padding of the reference main path's coarse conv), so
+its columns never wrap as the TPU kernel's do.
 """
 
 from __future__ import annotations
@@ -15,7 +24,7 @@ import torch
 
 from object_detector_6d_tpu_torch.ops import kernels
 
-MAX_F = 256  # features per candidate the kernel stages in shared memory
+MAX_F = 256  # features per candidate (K4) or template (K6) the kernels stage
 
 
 def _check_args(d_planes, plane_idx, r0, c0, nfeat):
@@ -75,3 +84,56 @@ def refine_sweep_batched(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
 
 
 refine_sweep_batched.launches = 0
+
+
+def coarse_sweep_plain(d_planes, plane_idx, dr, dc, nfeat, out_h: int,
+                       out_w: int) -> torch.Tensor:
+    """The plain PyTorch twin of kernel K6: one gather of every template's
+    [out_h, out_w] window per feature slot, zero outside the planes."""
+    B, P, Hp, Wp = d_planes.shape
+    nT, F = plane_idx.shape
+    dev = d_planes.device
+    flat = d_planes.reshape(B, P * Hp * Wp)
+    rows = torch.arange(out_h, device=dev)
+    cols = torch.arange(out_w, device=dev)
+    out = torch.zeros((B, nT, out_h, out_w), dtype=torch.int32, device=dev)
+    for f in range(F):
+        p, r, c = plane_idx[:, f], rows + dr[:, f, None], cols + dc[:, f, None]
+        live = (f < nfeat) & (p >= 0) & (p < P)  # [nT]
+        ok = (live[:, None, None] & ((r >= 0) & (r < Hp))[:, :, None]
+              & ((c >= 0) & (c < Wp))[:, None, :])
+        idx = ((p.clamp(0, P - 1)[:, None, None] * Hp + r.clamp(0, Hp - 1)[:, :, None])
+               * Wp + c.clamp(0, Wp - 1)[:, None, :])
+        out += torch.where(ok, flat[:, idx].to(torch.int32), 0)
+    return out
+
+
+def coarse_sweep(d_planes, plane_idx, dr, dc, nfeat, out_h: int, out_w: int
+                 ) -> torch.Tensor:
+    """[B, nT, out_h, out_w] int32 raw coarse similarity grid."""
+    if d_planes.dim() != 4 or plane_idx.dim() != 2 or nfeat.dim() != 1:
+        raise ValueError("expected D [B,P,Hp,Wp], tables [nT,F], nfeat [nT]")
+    if dr.shape != plane_idx.shape or dc.shape != plane_idx.shape \
+            or nfeat.shape[0] != plane_idx.shape[0]:
+        raise ValueError(f"table shapes {tuple(plane_idx.shape)}, {tuple(dr.shape)}, "
+                         f"{tuple(dc.shape)}, nfeat {tuple(nfeat.shape)} disagree")
+    if d_planes.device.type == "cpu":
+        return coarse_sweep_plain(d_planes, plane_idx, dr, dc, nfeat, out_h, out_w)
+    args = [d_planes.to(torch.int8).contiguous()] + [
+        t.to(torch.int32).contiguous() for t in (plane_idx, dr, dc, nfeat)]
+    kernels.require_cuda("coarse_sweep", *args)
+    B, P, Hp, Wp = d_planes.shape
+    nT, F = plane_idx.shape
+    if F > MAX_F:
+        raise ValueError(f"coarse sweep: {F} features per template > {MAX_F}")
+    out = torch.empty((B, nT, out_h, out_w), dtype=torch.int32, device=d_planes.device)
+    lib = kernels.library()
+    code = lib.odc_coarse_sweep(
+        *(a.data_ptr() for a in args), out.data_ptr(), B, P, Hp, Wp, nT, F,
+        int(out_h), int(out_w), kernels.stream_ptr(d_planes.device))
+    kernels.check(code, "coarse_sweep")
+    coarse_sweep.launches += 1
+    return out
+
+
+coarse_sweep.launches = 0

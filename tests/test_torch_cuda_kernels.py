@@ -73,3 +73,30 @@ def test_fused_scene_kernel_equals_twin(dev, H, W):
     want = fs.plain(d)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+@pytest.mark.parametrize("H,W", [(48, 64), (37, 90)])
+def test_cg_quantize_kernel_equals_twin(dev, H, W):
+    rng = np.random.RandomState(H)
+    yy, xx = np.mgrid[0:H, 0:W]
+    base = ((xx // 6 + yy // 6) % 2) * 150
+    bgr = np.stack([base[None] + rng.randint(0, 60, (3, H, W)) for _ in range(3)], -1)
+    bgr[:, : H // 3] = bgr[:, : H // 3, :, :1]  # gray rows: tied channels
+    bgr = torch.as_tensor(np.clip(bgr, 0, 255).astype(np.uint8), device=dev)  # [3, H, W, 3]
+    for weak in (10.0, 40.0):
+        got = quantize.cg_quantize_batched(bgr, weak)
+        torch.cuda.synchronize()
+        assert torch.equal(got, quantize.cg_quantize_plain(bgr, weak))
+
+
+def test_coarse_sweep_kernel_equals_twin(dev):
+    rng = np.random.RandomState(5)
+    B, P, Hp, Wp, nT, F = 2, 9, 13, 21, 5, 11
+    D = torch.as_tensor(rng.randint(0, 5, (B, P, Hp, Wp)).astype(np.int8), device=dev)
+    tab = [torch.as_tensor(rng.randint(lo, hi, (nT, F)), dtype=torch.int32, device=dev)
+           for lo, hi in ((-1, P + 1), (0, 6), (0, 6))]
+    nfeat = torch.as_tensor([F, 3, 0, 7, 1], dtype=torch.int32, device=dev)
+    for oh, ow in ((10, 17), (70, 50)):  # the second needs two output chunks
+        got = refine.coarse_sweep(D, *tab, nfeat, oh, ow)
+        torch.cuda.synchronize()
+        assert torch.equal(got, refine.coarse_sweep_plain(D, *tab, nfeat, oh, ow))

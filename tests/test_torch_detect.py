@@ -1,13 +1,14 @@
-"""The depth-only slice as a whole: the port's PoseDetector against the
-JAX package's, on the same trained state and the same frames.
+"""The detect path as a whole: the port's PoseDetector against the JAX
+package's, on the same trained state and the same frames.
 
-A JAX depth-only PoseDetector is trained on the snowman; its state goes
-to the port through io/convert.py as plain numpy. On two tools/scenes.py
+A JAX PoseDetector is trained on the snowman, depth-only and with the
+reference's two modalities (``rgb=`` its gray view x3); its state goes to
+the port through io/convert.py as plain numpy. On two tools/scenes.py
 frames the cluster records must agree: class, template and match fields
 equal, translations within 1 mm, rotations within 0.5 deg. This file runs
-the promoted schedule (test_torch_detect_default.py the default one; the
-reference's compile dominates either). The port's own add_view must
-reproduce the reference's templates.
+the promoted schedule (test_torch_detect_default.py the depth-only
+default one; the reference's compile dominates either). The port's own
+add_view must reproduce the reference's templates.
 """
 
 import functools
@@ -24,7 +25,11 @@ from object_detector_6d_tpu.core.config import DetectParams as RefDetectParams
 from object_detector_6d_tpu.core.config import ICPParams as RefICPParams
 from object_detector_6d_tpu_torch.api.detector import Detector
 from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
-from object_detector_6d_tpu_torch.io.convert import params_dict, pose_detector_from_state
+from object_detector_6d_tpu_torch.io.convert import (
+    detector_dict,
+    params_dict,
+    pose_detector_from_state,
+)
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent / "tools"))
 import scenes  # noqa: E402
@@ -40,16 +45,29 @@ SCHEDULES = {
         num_seeds=2, fine_compact=8),
 }
 T_FRAMES = (np.array([0.055, -0.022, -0.04]), np.array([-0.03, 0.04, 0.02]))
+DEPTH_ONLY = ("DepthNormal",)
+BOTH = ("ColorGradient", "DepthNormal")
 
 
-@functools.lru_cache(maxsize=1)
-def _trained():
-    dep, _, mask = scenes.snowman_scene()
-    ref = RefPoseDetector(detector=RefDetector(modalities=("DepthNormal",)),
-                          model_points=512)
-    assert ref.add_view("obj", dep, K, mask.astype(np.uint8) * 255) == 0
-    frames = np.stack([scenes.render_translated(dep, mask, K, t)[0] for t in T_FRAMES])
-    return ref, frames
+def _bgr(gray):
+    return np.repeat(gray[..., None], 3, axis=-1)
+
+
+def _view_rgb(modalities, gray):
+    return _bgr(gray) if "ColorGradient" in modalities else None
+
+
+@functools.lru_cache(maxsize=2)
+def _trained(modalities=DEPTH_ONLY):
+    """The reference trained on the snowman, and two frames (depths, BGRs)."""
+    dep, gray, mask = scenes.snowman_scene()
+    ref = RefPoseDetector(detector=RefDetector(modalities=modalities), model_points=512)
+    assert ref.add_view("obj", dep, K, mask.astype(np.uint8) * 255,
+                        rgb=_view_rgb(modalities, gray)) == 0
+    rendered = [scenes.render_translated(dep, mask, K, t) for t in T_FRAMES]
+    depths = np.stack([r[0] for r in rendered])
+    rgbs = np.stack([_bgr(r[2]) for r in rendered])
+    return ref, depths, rgbs
 
 
 def _state(ref):
@@ -68,15 +86,17 @@ def _rot_deg(Ra, Rb):
     return float(np.degrees(2 * np.arcsin(min(1.0, s))))
 
 
-def check_schedule(schedule):
-    ref, frames = _trained()
+def check_schedule(schedule, modalities=DEPTH_ONLY):
+    ref, frames, rgbs = _trained(modalities)
     params = SCHEDULES[schedule]
     ref.params = params
     templates, views = _state(ref)
-    port = pose_detector_from_state(templates, views, params_dict(params),
-                                    model_points=512, device="cpu")
-    want = ref.detect_fused_batch(frames, K)
-    got = port.detect_fused_batch(frames, K)
+    port = pose_detector_from_state(detector_dict(ref.detector), templates, views,
+                                    params_dict(params), model_points=512, device="cpu")
+    assert port.detector.modality_names == modalities
+    rgbs = rgbs if "ColorGradient" in modalities else None
+    want = ref.detect_fused_batch(frames, K, rgbs)
+    got = port.detect_fused_batch(frames, K, rgbs)
     assert len(got) == len(want) == 2
     assert any(want), "the reference found nothing"
     for b, (wp, gp) in enumerate(zip(want, got)):
@@ -91,7 +111,7 @@ def check_schedule(schedule):
         if gp:
             assert np.abs(gp[0].pose[:3, 3] - T_FRAMES[b]).max() < 0.01
     # the single-frame entry point is the batch of one
-    one = port.detect_fused(frames[1], K)
+    one = port.detect_fused(frames[1], K, None if rgbs is None else rgbs[1])
     assert [(p.class_id, p.template_id, p.num_votes) for p in one] == \
         [(p.class_id, p.template_id, p.num_votes) for p in got[1]]
     for p, q in zip(one, got[1]):
@@ -102,11 +122,18 @@ def test_detect_fused_batch_equals_reference_promoted():
     check_schedule("promoted")
 
 
-def test_port_add_view_equals_reference():
-    ref, _ = _trained()
-    dep, _, mask = scenes.snowman_scene()
-    own = PoseDetector(detector=Detector(modalities=("DepthNormal",)), model_points=512)
-    assert own.add_view("obj", dep, K, mask.astype(np.uint8) * 255) == 0
+def test_two_modality_detect_fused_batch_equals_reference():
+    check_schedule("promoted", BOTH)
+
+
+@pytest.mark.parametrize("modalities", [DEPTH_ONLY, BOTH])
+def test_port_add_view_equals_reference(modalities):
+    ref, _, _ = _trained(modalities)
+    dep, gray, mask = scenes.snowman_scene()
+    own = PoseDetector(detector=Detector(modalities=modalities), model_points=512)
+    assert own.add_view("obj", dep, K, mask.astype(np.uint8) * 255,
+                        rgb=_view_rgb(modalities, gray)) == 0
+    assert len(own.detector.class_templates["obj"][0]) == 2 * len(modalities)
     for a, b in zip(own.detector.class_templates["obj"][0],
                     ref.detector.class_templates["obj"][0]):
         assert (a.width, a.height, a.pyramid_level) == (b.width, b.height, b.pyramid_level)

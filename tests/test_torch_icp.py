@@ -17,12 +17,12 @@ import pytest
 import torch
 
 from object_detector_6d_tpu.api import detect_program as ref_dp
-from object_detector_6d_tpu.core.config import ColorGradientParams
+from object_detector_6d_tpu.core.config import ColorGradientParams as RefCGParams
 from object_detector_6d_tpu.core.config import DepthNormalParams as RefDNParams
 from object_detector_6d_tpu.match.program import PackedBank as RefPackedBank
 from object_detector_6d_tpu.refine.projective import icp_levels as ref_icp_levels
 from object_detector_6d_tpu_torch.api import detect_program as dp
-from object_detector_6d_tpu_torch.core.config import DepthNormalParams
+from object_detector_6d_tpu_torch.core.config import ColorGradientParams, DepthNormalParams
 from object_detector_6d_tpu_torch.match.program import PackedBank
 from object_detector_6d_tpu_torch.ops.geometry import FusedScene, planes_to_scene8
 from object_detector_6d_tpu_torch.refine.projective import icp_levels
@@ -138,11 +138,11 @@ def test_lift_seeds_equal_reference(lift_impl):
     _, model, z_img = _scene_and_model()
     S, K_cap = 3, 8
     ref_run = ref_dp.make_detect_program(
-        ("DepthNormal",), (5, 8), (H, W), RefDNParams(), ColorGradientParams(),
+        ("DepthNormal",), (5, 8), (H, W), RefDNParams(), RefCGParams(),
         K_SMALL, max_candidates=K_cap, num_seeds=S, lift_window=48, lift_impl=lift_impl)
     ref_lift = _closure_fn(_closure_fn(ref_run, "lift_and_refine"), "lift")
     port_run = dp.make_detect_program(("DepthNormal",), (5, 8), (H, W),
-                                      DepthNormalParams(), K_SMALL,
+                                      DepthNormalParams(), ColorGradientParams(), K_SMALL,
                                       max_candidates=K_cap, num_seeds=S, lift_window=48,
                                       lift_impl=lift_impl)
     port_lift = _closure_fn(port_run, "lift_and_refine")
@@ -158,7 +158,7 @@ def test_lift_seeds_equal_reference(lift_impl):
     bank_kw = dict(class_ids=["a", "a", "b"], local_tids=np.array([0, 1, 0], np.int32))
     ref_bank = RefPackedBank(kernels_low=[], kernels_dec=[], feat_plane=[], feat_dr=[],
                              feat_dc=[], feat_n=[], max_dr=0, nfeat=[], sizes=[], **bank_kw)
-    bank = PackedBank(kernels_low=[], feat_plane=[], feat_dr=[], feat_dc=[], feat_n=[],
+    bank = PackedBank(coarse=(), feat_plane=[], feat_dr=[], feat_dc=[], feat_n=[],
                       nfeat=[], sizes=[], **bank_kw)
     rng = np.random.RandomState(2)
     packed = np.zeros((5, K_cap + 1), np.float32)

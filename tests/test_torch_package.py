@@ -14,8 +14,8 @@ import torch
 import object_detector_6d_tpu_torch
 from object_detector_6d_tpu_torch.ops import kernels
 from object_detector_6d_tpu_torch.ops.geometry import FusedScene
-from object_detector_6d_tpu_torch.ops.quantize import dn_quantize_batched
-from object_detector_6d_tpu_torch.ops.refine import refine_sweep_batched
+from object_detector_6d_tpu_torch.ops.quantize import cg_quantize_batched, dn_quantize_batched
+from object_detector_6d_tpu_torch.ops.refine import coarse_sweep, refine_sweep_batched
 from object_detector_6d_tpu_torch.ops.response import response_spread_batched
 
 torch.set_num_threads(1)
@@ -26,7 +26,8 @@ ROOT = PKG.parent
 
 def test_importing_the_pipeline_loads_no_jax():
     code = ("import sys, object_detector_6d_tpu_torch.api.pipeline, "
-            "object_detector_6d_tpu_torch.io.convert\n"
+            "object_detector_6d_tpu_torch.io.convert, "
+            "object_detector_6d_tpu_torch.data.synthetic\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'object_detector_6d_tpu' or m.startswith('object_detector_6d_tpu.')]\n"
             "assert not bad, bad\nprint('clean')")
@@ -60,6 +61,8 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
     """A tensor that is not on the CPU goes to the kernel path, which
     takes CUDA tensors only: it raises, it never runs the twin."""
     with pytest.raises(RuntimeError, match="kernel path"):
+        cg_quantize_batched(_meta(1, 16, 16, 3, dtype=torch.uint8))
+    with pytest.raises(RuntimeError, match="kernel path"):
         dn_quantize_batched(_meta(1, 16, 16, dtype=torch.int32))
     with pytest.raises(RuntimeError, match="kernel path"):
         response_spread_batched(_meta(1, 16, 16, dtype=torch.uint8), 5)
@@ -71,6 +74,9 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
         refine_sweep_batched(_meta(1, 2, 32, 32, dtype=torch.int8), _meta(1, 2, 3, dtype=i32),
                              _meta(1, 2, 3, dtype=i32), _meta(1, 2, 3, dtype=i32),
                              _meta(1, 2, dtype=i32))
+    with pytest.raises(RuntimeError, match="kernel path"):
+        coarse_sweep(_meta(1, 2, 8, 8, dtype=torch.int8), _meta(3, 4, dtype=i32),
+                     _meta(3, 4, dtype=i32), _meta(3, 4, dtype=i32), _meta(3, dtype=i32), 4, 4)
 
 
 def test_kernel_library_raises_without_cuda_build(monkeypatch, tmp_path):
@@ -93,5 +99,5 @@ def test_kernel_source_hash_tracks_sources():
     h = kernels.source_hash()
     assert len(h) == 16 and h == kernels.source_hash()
     names = {p.name for p in kernels.CSRC.glob("*.cu")}
-    assert names == {"dn_quantize.cu", "response_spread.cu", "refine_sweep.cu",
-                     "fused_scene.cu"}
+    assert names == {"cg_quantize.cu", "dn_quantize.cu", "response_spread.cu",
+                     "refine_sweep.cu", "fused_scene.cu", "coarse_sweep.cu"}
