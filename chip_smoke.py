@@ -13,7 +13,10 @@ Phases (each raises on failure, so the script exits non-zero):
                at [B,240,320,3] (after pyr_down_u8) and at 479x641, each
                on the gray frames and on frames with seeded per-channel
                noise; K6 (coarse sweep) against its twin at the main
-               path's planes and tables and at an odd plane size; timings
+               path's planes and tables and at an odd plane size, and
+               beside one cuDNN conv2d that computes the same grid; K4
+               (refine sweep) against its twin on the arguments the match
+               program passes it; timings
    b. main     PoseDetector.detect_fused_batch(depths, K, rgbs) on B=32
                two-object 480x640 frames: every kernel K1-K6 launched, no
                candidate overflow, every objA pose within 1 cm and 5 deg of
@@ -25,7 +28,8 @@ Phases (each raises on failure, so the script exits non-zero):
                against the same 2 through a CPU PoseDetector: same classes,
                translations within 1 mm, rotations within 0.5 deg
 4. depth-only path, Detector(modalities=("DepthNormal",)): K2-K5 against
-   their twins (main shapes and 479x641) with timings, then the same main
+   their twins (main shapes and 479x641; K4 on random in-bounds tables)
+   with timings of K2, K3 and K5, then the same main
    and cpu checks as 3b and 3c on its own frames
 
 The two-modality workload is bench.py's: the snowman objA and its
@@ -39,7 +43,14 @@ depth-only workload has 130 depth-only distractors instead (13 classes x
 
 The line before the last is {"kernels": [...]}: every kernel with its
 launches on the two-modality main path, its largest difference from its
-twin and its time beside the twin's. The last line of standard output is
+twin, its time beside the twin's, its bound (the larger of its bytes over
+the card's memory rate and its operations over the peak rate for their
+type, from this run's inputs; bound_by says which) and the time of one
+PyTorch call that computes the same function (library_ms, null where
+there is none). K4 is timed alone, through its C entry point, on the
+arguments the two-modality match program passes it, with the L2 flushed
+before each batch; its wrapper's time (argument checks with a host sync)
+is logged beside it. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -172,6 +183,37 @@ def ground_truth_stats(results, gts):
     return found, spurious
 
 
+def two_modality_bank():
+    """bench.py's distractor bank on the reference's default Detector()."""
+    from object_detector_6d_tpu_torch.api.detector import Detector
+    from object_detector_6d_tpu_torch.data.synthetic import synthetic_bank
+
+    return synthetic_bank(n_classes=12, per_class=10, bbox_px=120, seed=0,
+                          detector=Detector())
+
+
+def train(det, dev, scenes, K):
+    """A PoseDetector on ``dev`` with bench.py's promoted schedule, objA and
+    objB (the 0.78-scale snowman) trained into ``det`` with add_view."""
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+    from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
+
+    params = DetectParams(match_threshold=THRESHOLD, max_hypotheses=16,
+                          icp=ICPParams(iterations=32, num_levels=4,
+                                        solves_per_assoc=2, finest_assoc=2),
+                          num_seeds=2, fine_compact=8)
+    pd = PoseDetector(detector=det, params=params, model_points=512, device=dev)
+    t0 = time.time()
+    for cid, scale in (("objA", 1.0), ("objB", 0.78)):
+        dep, gray, mask = scenes.snowman_scene(scale=scale)
+        rgb = np.repeat(gray[..., None], 3, axis=2)
+        if pd.add_view(cid, dep, K, mask.astype(np.uint8) * 255, rgb=rgb) != 0:
+            raise AssertionError(f"add_view {cid} failed")
+    log(f"train {det.modality_names}: {det.num_templates()} templates, 2 classes "
+        f"with views ({time.time() - t0:.1f} s on the host)")
+    return pd
+
+
 # ----------------------------------------------------------------------
 # card phases
 # ----------------------------------------------------------------------
@@ -195,6 +237,58 @@ def cuda_ms(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int = 20) -> float:
+    """Mean ms per call with the 50 MB L2 flushed before each call (a
+    256 MiB buffer written between calls; CUDA events around each call)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+# Published peaks of one H100 SXM at 700 W: HBM 3.35 TB/s; 67 TFLOP/s
+# float32 counts a fused multiply-add as 2, so 33.5 T single operations
+# a second run on the CUDA cores (132 SMs x 128 lanes x 1.98 GHz), of
+# which int32 has half the lanes: 16.7 T int32 operations a second.
+HBM_BYTES_S = 3.35e12
+ALL_OPS_S = 33.5e12
+INT32_OPS_S = 16.7e12
+# operations per output pixel of the algorithm each kernel computes
+# (counted from its definition, not from the kernel's code):
+# K1: 7-tap symmetric Gaussian 10 per pass, 2 passes + rounding (23) x 3
+#     channels; Sobel 12 + magnitude 3 (15) x 3; channel select 6; vote
+#     (packed 4-bit fields, separable 3x3) 6, the bin with >= 5 votes 5,
+#     gates 5 -> 136 int; fastAtan2 + bin 23 float
+K1_INT, K1_FP = 136, 23
+# K2: 8 ring samples x (difference, gate, 3 normal-equation and 2
+#     right-hand accumulations) 80, solve 10, octant 10, 5x5 median over
+#     packed counts 50 -> 150 int; normal, norm, scale 20 float
+K2_INT, K2_FP = 150, 20
+# K3: log-step OR spread 2 x ceil(log2 T), then 8 orientations x
+#     (rotate, lookup) -> ~40 int
+K3_INT = 40
+# K5: cloud 8, radius 6, inverse 1, unit ray 3, 5x5 box sums 3 x 8,
+#     M^-1 b 15, normalize 9, orientation 6 -> 72 float
+K5_FP = 72
+
+
+def bound_ms(nbytes: float, int_ops: float = 0.0, fp_ops: float = 0.0):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(int_ops / INT32_OPS_S, (int_ops + fp_ops) / ALL_OPS_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _ang_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -227,6 +321,31 @@ def odd_frames(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x[:, :, -1:]], dim=2)[:, :, :ow].contiguous()
 
 
+def coarse_conv_ms(D, tables, oh: int, ow: int, want: torch.Tensor) -> float:
+    """The library yardstick of K6, timed only: one cuDNN float32 conv2d
+    (TF32 off) of the stacked planes with each template's features as a
+    dense one-hot kernel, which computes K6's sum. It must equal K6."""
+    plane, dr, dc, n = tables
+    nT, F = plane.shape
+    dev = D.device
+    kh, kw = int(dr.max()) + 1, int(dc.max()) + 1
+    live = torch.arange(F, device=dev)[None] < n[:, None]
+    tid = torch.arange(nT, device=dev)[:, None].expand(nT, F)
+    w = torch.zeros((nT, D.shape[1], kh, kw), dtype=torch.float32, device=dev)
+    w.index_put_((tid[live], plane[live].long(), dr[live].long(), dc[live].long()),
+                 torch.ones(int(live.sum()), device=dev), accumulate=True)
+    Df = torch.nn.functional.pad(D.to(torch.float32), (
+        0, max(0, ow + kw - 1 - D.shape[3]), 0, max(0, oh + kh - 1 - D.shape[2])))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = torch.nn.functional.conv2d(Df, w)[:, :, :oh, :ow]
+        compare("coarse conv2d (library)", got.round().to(torch.int32), want)
+        return cuda_ms(lambda: torch.nn.functional.conv2d(Df, w), reps=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def color_kernel_checks(dev, pd, rgbs_np, depths_np, gpu):
     """K1 and K6 against their twins on the card. Returns their records."""
     from object_detector_6d_tpu_torch.match.program import quantize_pyramids_batched
@@ -255,7 +374,10 @@ def color_kernel_checks(dev, pd, rgbs_np, depths_np, gpu):
             + cuda_ms(lambda: quantize.cg_quantize_batched(gray1, weak))),
         plain_ms=(cuda_ms(lambda: quantize.cg_quantize_plain(gray, weak), reps=5)
                   + cuda_ms(lambda: quantize.cg_quantize_plain(gray1, weak), reps=5)),
-        shape=f"{list(gray.shape)} + {list(gray1.shape)} u8 -> u8")]
+        shape=f"{list(gray.shape)} + {list(gray1.shape)} u8 -> u8", library_ms=None)]
+    px = (gray.numel() + gray1.numel()) // 3
+    recs[0]["bound_ms"], recs[0]["bound_by"] = bound_ms(
+        gray.numel() + gray1.numel() + px, K1_INT * px, K1_FP * px)
 
     # K6 on the main path's stacked level-1 planes and the bank's tables
     sources = [gray if n == "ColorGradient" else
@@ -285,11 +407,127 @@ def color_kernel_checks(dev, pd, rgbs_np, depths_np, gpu):
         ms=cuda_ms(lambda: refine.coarse_sweep(D, *tables, gh, gw)),
         plain_ms=cuda_ms(lambda: refine.coarse_sweep_plain(D, *tables, gh, gw), reps=5),
         shape=f"D {list(D.shape)} i8, tables {list(tables[0].shape)} -> "
-              f"[{D.shape[0]},{tables[0].shape[0]},{gh},{gw}] i32"))
+              f"[{D.shape[0]},{tables[0].shape[0]},{gh},{gw}] i32",
+        library_ms=coarse_conv_ms(D, tables, gh, gw, refine.coarse_sweep(D, *tables, gh, gw))))
+    out_bytes = 4 * D.shape[0] * tables[0].shape[0] * gh * gw
+    recs[-1]["bound_ms"], recs[-1]["bound_by"] = bound_ms(
+        D.numel() + sum(t.numel() * 4 for t in tables) + out_bytes,
+        int(tables[3].sum()) * D.shape[0] * gh * gw)
     for r in recs:
-        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms "
-            f"({r['shape']}; {gpu})")
+        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']} "
+            f"ms ({r['shape']}; {gpu})")
     return recs
+
+
+def capture_refine_args(dev, pd, depths_np, rgbs_np, K):
+    """The arguments of every K4 launch in one call of ``pd``'s match
+    program on these frames (D and its tables, one launch per modality)."""
+    from object_detector_6d_tpu_torch.match import program as mp
+
+    H, W = depths_np.shape[1:]
+    prog, _ = pd.program(H, W, K)
+    det = pd.detector
+    d = torch.as_tensor(depths_np.astype(np.int32), device=dev)
+    sources = [torch.as_tensor(rgbs_np, device=dev) if n == "ColorGradient" else d
+               for n in det.modality_names]
+    calls = []
+    real = mp.refine_sweep_batched
+
+    def capture(*args):
+        calls.append(args)
+        return real(*args)
+
+    mp.refine_sweep_batched = capture
+    try:
+        with torch.no_grad():
+            prog.match_program(sources, *pd.bank_tensors(det.get_bank())[0], THRESHOLD)
+    finally:
+        mp.refine_sweep_batched = real
+    return calls
+
+
+def refine_launcher(lib, calls, dev):
+    """A function that launches K4's C entry point in ``lib`` on each
+    captured call's arguments (converted once, here), without the
+    wrapper's argument checks and host sync, so that it times the kernel
+    alone; and the outputs it writes."""
+    from object_detector_6d_tpu_torch.ops import kernels
+
+    stream = kernels.stream_ptr(dev)
+    prepared = []
+    for D, plane, r0, c0, nfe in calls:
+        a = [D.to(torch.int8).contiguous()] + [
+            t.to(torch.int32).contiguous() for t in (plane, r0, c0, nfe)]
+        out = torch.empty((D.shape[0], plane.shape[1], 16, 16), dtype=torch.int32, device=dev)
+        prepared.append((a, out, (*D.shape, plane.shape[1], plane.shape[2])))
+
+    def run():
+        for a, out, dims in prepared:
+            kernels.check(lib.odc_refine_sweep(*(t.data_ptr() for t in a), out.data_ptr(),
+                                               *dims, stream), "refine_sweep")
+
+    return run, [out for _, out, _ in prepared]
+
+
+def refine_main_path_record(dev, pd, depths_np, rgbs_np, K, gpu):
+    """K4 against its twin on the arguments the two-modality match program
+    passes it (one call of the match program, D [B,200,Hp2,Wp2] i8 and
+    tables [B,16,F] per modality), timed with the L2 warm (repeated
+    launches) and cold (flushed before each launch). Returns its record."""
+    from object_detector_6d_tpu_torch.ops import kernels, refine
+
+    calls = capture_refine_args(dev, pd, depths_np, rgbs_np, K)
+    nbytes = int_ops = 0
+    for D, plane, r0, c0, nfe in calls:
+        compare(f"refine_sweep main path {tuple(D.shape)}",
+                refine.refine_sweep_batched(D, plane, r0, c0, nfe),
+                refine.refine_sweep_plain(D, plane, r0, c0, nfe))
+        # distinct bytes of D that the live tiles cover, the live table
+        # entries (plane, r0, c0), nfeat and the int32 [B,K,16,16] output
+        Bt, P, Hp, Wp = D.shape
+        live = torch.arange(plane.shape[2], device=dev)[None, None] < nfe[..., None]
+        bidx = torch.arange(Bt, device=dev)[:, None, None].expand_as(plane)[live]
+        base = ((bidx * P + plane[live]) * Hp + r0[live]) * Wp + c0[live]
+        ar = torch.arange(16, device=dev)
+        idx = base[:, None, None] + ar[None, :, None] * Wp + ar[None, None, :]
+        touched = torch.zeros(D.numel(), dtype=torch.bool, device=dev)
+        touched[idx.reshape(-1).long()] = True
+        n_live = int(live.sum())
+        nbytes += int(touched.sum()) + 12 * n_live + 4 * nfe.numel() + 4 * 256 * nfe.numel()
+        int_ops += 256 * n_live
+        del touched, idx
+    bnd, by = bound_ms(nbytes, int_ops)
+
+    def both():
+        for a in calls:
+            refine.refine_sweep_batched(*a)
+
+    def both_plain():
+        for a in calls:
+            refine.refine_sweep_plain(*a)
+
+    raw, outs = refine_launcher(kernels.library(), calls, dev)
+    raw()
+    for a, o in zip(calls, outs):
+        compare("refine_sweep C entry", o, refine.refine_sweep_plain(*a))
+    warm = cuda_ms(raw)
+    cold = cuda_ms_cold(raw)
+    wrapped = cuda_ms(both)
+    D0, plane0 = calls[0][0], calls[0][1]
+    shape = (f"{len(calls)} launches: D {list(D0.shape)} i8, tables {list(plane0.shape)}, "
+             f"{nbytes / 1e6:.2f} MB touched, {int_ops} adds")
+    log(f"kernel refine_sweep_batched: equal to twin on the two-modality main path's "
+        f"arguments ({shape}); the kernel alone: warm L2 {warm:.4f} ms, cold L2 "
+        f"{cold:.4f} ms per batch; through the wrapper (argument checks with a host "
+        f"sync, warm) {wrapped:.4f} ms; {gpu}")
+    return dict(
+        name="refine_sweep_batched", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/refine_sweep.cu",
+        replaces="object_detector_6d_tpu/ops/refine_pallas.py:83",
+        max_abs_err=0.0, ms=cold,
+        plain_ms=cuda_ms(both_plain, reps=5), bound_ms=bnd, bound_by=by,
+        library_ms=None, shape=shape + ", the kernel alone, L2 flushed before each batch")
 
 
 def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
@@ -317,7 +555,9 @@ def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
         max_abs_err=err,
         ms=cuda_ms(lambda: quantize.dn_quantize_batched(d_main)),
         plain_ms=cuda_ms(lambda: quantize.dn_quantize_plain(d_main), reps=5),
-        shape=f"[{B},{H},{W}] i32 -> u8"))
+        shape=f"[{B},{H},{W}] i32 -> u8", library_ms=None))
+    px = d_main.numel()
+    recs[-1]["bound_ms"], recs[-1]["bound_by"] = bound_ms(5 * px, K2_INT * px, K2_FP * px)
     log(f"kernel dn_quantize_batched: equal to twin at {tuple(d_main.shape)} and "
         f"{tuple(d_odd.shape)}")
 
@@ -337,11 +577,15 @@ def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
         source="object_detector_6d_tpu_torch/csrc/response_spread.cu",
         replaces="object_detector_6d_tpu/ops/response_pallas.py:76",
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-        shape=f"[{B},{H},{W}] T=5 + [{B},{H // 2},{W // 2}] T=8"))
+        shape=f"[{B},{H},{W}] T=5 + [{B},{H // 2},{W // 2}] T=8", library_ms=None))
+    px = q0.numel() + q1.numel()
+    recs[-1]["bound_ms"], recs[-1]["bound_by"] = bound_ms(9 * px, K3_INT * px)
     log("kernel response_spread_batched: equal to twin at T=5 and T=8, main and odd sizes")
 
-    # K4 refine sweep on the main path's D with bank feature tables at
-    # random in-bounds anchors (some candidates with zero features)
+    # K4 refine sweep (exactness only; its record comes from the
+    # two-modality main path's own arguments) on the depth-only D with
+    # bank feature tables at random in-bounds anchors, some candidates
+    # with zero features
     R0 = response.response_spread_batched(q0, 5)
     Hd, Wd = -(-H // 5), -(-W // 5)
     Hp2 = 1 << (max(Hd + 17, 32) - 1).bit_length()
@@ -370,14 +614,6 @@ def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
     for Dt, tt in ((D, tb), (D_odd, tables(D_odd, 3))):
         compare(f"refine_sweep {tuple(Dt.shape)}",
                 refine.refine_sweep_batched(Dt, *tt), refine.refine_sweep_plain(Dt, *tt))
-    recs.append(dict(
-        name="refine_sweep_batched", route="cuda",
-        source="object_detector_6d_tpu_torch/csrc/refine_sweep.cu",
-        replaces="object_detector_6d_tpu/ops/refine_pallas.py:83",
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: refine.refine_sweep_batched(D, *tb)),
-        plain_ms=cuda_ms(lambda: refine.refine_sweep_plain(D, *tb), reps=5),
-        shape=f"D [{B},200,{Hp2},{Wp2}] i8, tables [{B},{Kc},{plane_b.shape[1]}]"))
     log(f"kernel refine_sweep_batched: equal to twin at D {tuple(D.shape)} and "
         f"{tuple(D_odd.shape)}")
 
@@ -410,10 +646,14 @@ def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
         max_abs_err=max(max(v[0], v[1]) for v in worst.values()),
         ms=cuda_ms(lambda: fscene_main(d_main)),
         plain_ms=cuda_ms(lambda: fscene_main.plain(d_main), reps=5),
-        shape=f"[{B},{H},{W}] i32 -> [{B},8,{H},{W}] f32"))
+        shape=f"[{B},{H},{W}] i32 -> [{B},8,{H},{W}] f32", library_ms=None))
+    px = d_main.numel()
+    recs[-1]["bound_ms"], recs[-1]["bound_by"] = bound_ms(
+        (4 + 32) * px + (5 + 9) * 4 * H * W, 0, K5_FP * px)
     for r in recs:
-        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms "
-            f"({r['shape']}; {gpu})")
+        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, library {r['library_ms']} "
+            f"ms ({r['shape']}; {gpu})")
     return recs
 
 
@@ -510,9 +750,6 @@ def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious
 
 def run(dev, gpu: str) -> None:
     from object_detector_6d_tpu_torch.api.detector import Detector
-    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
-    from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
-    from object_detector_6d_tpu_torch.data.synthetic import synthetic_bank
     from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
 
     # phase 2: build
@@ -525,29 +762,13 @@ def run(dev, gpu: str) -> None:
 
     scenes = scenes_module()
     K = scenes.K_DEFAULT
-    params = DetectParams(match_threshold=THRESHOLD, max_hypotheses=16,
-                          icp=ICPParams(iterations=32, num_levels=4,
-                                        solves_per_assoc=2, finest_assoc=2),
-                          num_seeds=2, fine_compact=8)
-
-    def train(det):
-        pd = PoseDetector(detector=det, params=params, model_points=512, device=dev)
-        t0 = time.time()
-        for cid, scale in (("objA", 1.0), ("objB", 0.78)):
-            dep, gray, mask = scenes.snowman_scene(scale=scale)
-            rgb = np.repeat(gray[..., None], 3, axis=2)
-            if pd.add_view(cid, dep, K, mask.astype(np.uint8) * 255, rgb=rgb) != 0:
-                raise AssertionError(f"add_view {cid} failed")
-        log(f"train {det.modality_names}: {det.num_templates()} templates, 2 classes "
-            f"with views ({time.time() - t0:.1f} s on the host)")
-        return pd
 
     # phase 3: the two-modality path (the reference's default Detector)
-    pd2 = train(synthetic_bank(n_classes=12, per_class=10, bbox_px=120, seed=0,
-                               detector=Detector()))
+    pd2 = train(two_modality_bank(), dev, scenes, K)
     depths2, rgbs2, gts2 = make_frames(scenes, K, B, seed=SEED2)
     pd2.detect_fused_batch(depths2[:2], K, rgbs2[:2])  # the bank on the card
     recs = color_kernel_checks(dev, pd2, rgbs2, depths2, gpu)
+    recs.append(refine_main_path_record(dev, pd2, depths2, rgbs2, K, gpu))
     counted2 = (quantize.cg_quantize_batched, quantize.dn_quantize_batched,
                 response.response_spread_batched, refine.coarse_sweep,
                 refine.refine_sweep_batched, geometry.FusedScene)
@@ -555,7 +776,7 @@ def run(dev, gpu: str) -> None:
                              REF2_OBJB_FOUND, REF2_OBJB_SPURIOUS, gpu)
 
     # phase 4: the depth-only path
-    pd = train(add_distractors(Detector(modalities=("DepthNormal",))))
+    pd = train(add_distractors(Detector(modalities=("DepthNormal",))), dev, scenes, K)
     det = pd.detector
     depths, _, gts = make_frames(scenes, K, B, seed=SEED)
     pd.detect_fused_batch(depths[:2], K)
@@ -570,7 +791,7 @@ def run(dev, gpu: str) -> None:
     for r in recs:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(gpu)
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
 

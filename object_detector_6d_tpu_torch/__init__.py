@@ -2,8 +2,10 @@
 
 A second package beside the JAX reference ``object_detector_6d_tpu``,
 with the same subpackage layout and module names. It runs on one NVIDIA
-H100 (hand-written ``sm_90a`` kernels under ``csrc/``) or on the CPU,
-where every kernel wrapper uses its plain PyTorch twin.
+H100 (hand-written ``sm_90a`` kernels under ``csrc/``). Every entry point
+(PoseDetector, pose_detector_from_state, make_detect_program, pack_views,
+FusedScene) defaults to ``device="cuda"``; ``device="cpu"`` asks for the
+CPU, where every kernel wrapper uses its plain PyTorch twin.
 
 It carries the fused detect path, with the reference's two modalities
 (ColorGradient + DepthNormal) or either one alone:

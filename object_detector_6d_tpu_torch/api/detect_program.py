@@ -41,7 +41,7 @@ class PackedViews(NamedTuple):
 
 
 def pack_views(bank: "mp.PackedBank", views: Dict, model_points: int,
-               device="cpu") -> PackedViews:
+               device="cuda") -> PackedViews:
     """Stack PoseDetector.views records into bank-ordered tensors.
 
     ``views`` maps (class_id, local_tid) -> a record with model_cloud
@@ -259,7 +259,7 @@ def make_detect_program(
     min_inlier_frac: float = 0.25,
     fine_compact: int = 0,
     lift_impl: str = "hist",
-    device="cpu",
+    device="cuda",
 ):
     """Build the batched detect program for one (frame shape, K) pair.
 

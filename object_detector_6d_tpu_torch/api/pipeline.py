@@ -16,7 +16,9 @@ Detector.add_template, plus the view's masked cloud + FALS normals
 program of api/detect_program.py on ``device`` and unpacks the device
 cluster-NMS records into Pose objects.
 
-``device`` is explicit: nothing moves to CUDA unless asked. A frame whose
+``device`` defaults to the card ("cuda"); ``device="cpu"`` asks for the
+plain twins on the host. Without a card, a detect call on the default
+device raises: it never carries on on the CPU. A frame whose
 coarse candidates overflow ``max_hypotheses`` raises: the reference falls
 back to its host-orchestrated ``detect`` there, which is not ported yet.
 """
@@ -64,7 +66,7 @@ class PoseDetector:
         model_points: int = 1024,
         scene_window: int = 160,
         lift_impl: str = "hist",
-        device="cpu",
+        device="cuda",
     ):
         self.detector = detector or Detector()
         self.params = params or DetectParams()
@@ -206,6 +208,10 @@ class PoseDetector:
         """Launch the fused program; returns a handle for
         :meth:`detect_fused_finalize` (PyTorch queues the device work, so
         the call returns before the card finishes)."""
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"PoseDetector on {self.device}: no CUDA card is visible; pass "
+                "device='cpu' to run the plain twins on the host")
         if isinstance(depths, torch.Tensor):
             validate_frame(np.empty(tuple(depths.shape[1:3])), K,
                            None if rgbs is None else np.empty(tuple(rgbs.shape[1:])))

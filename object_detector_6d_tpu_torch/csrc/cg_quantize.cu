@@ -7,32 +7,39 @@
 // frame border forced to bin 0, a 3x3 vote (>= 5 of 9) and the weak
 // magnitude gate. Bit-identical to quant/color_gradient.py.
 //
-// Bound on the H100: memory and latency. Per pixel it reads 3 bytes and
-// writes 1, with ~100 integer and ~15 float operations; a 480x640 frame
-// is 0.9 MB in. The simple design: one block per 32x8 output tile, one
-// thread per output pixel, every stage over shared memory: the input
-// with a 5-pixel halo (Gaussian 3 + Sobel 1 + vote 1, edge-replicated by
-// clamping the index), the horizontal then vertical Gaussian pass, then
-// Sobel + channel select + angle on the tile and a 1-pixel halo, then the
-// vote. Float steps are spelled as __f*_rn intrinsics in the reference's
-// order (and the library is built -fmad=false): one fused multiply-add
-// or an approximate division would move angles across bin edges.
+// Bound on the H100: integer operations. A pixel reads 3 bytes and writes
+// 1 (49 MB for both levels of a B=32 batch of 480x640 frames: 15 us at
+// 3.35 TB/s), but the algorithm needs ~136 int32 operations a pixel (two
+// symmetric 7-tap passes and the Sobel on 3 channels, channel select,
+// vote) and ~23 float ones (fastAtan2, bin): ~0.10 ms for the batch at
+// 16.7 T int32 operations a second. So the design spends as few
+// instructions a pixel as it can, and no block-wide barrier:
+//
+// - Each warp owns a strip of 32 columns (28 outputs: the Sobel and the
+//   vote each take a column of halo on each side) and walks down RH rows
+//   of it (10 rows of warm-up: Gaussian 3 + Sobel 1 + vote 1 on each
+//   side; RH + 10 is a multiple of 7). A row of the strip's input (38
+//   pixels, 114 contiguous bytes of the BGR row) comes in as one aligned
+//   4-byte load a lane, prefetched a row ahead, through one of 7 per-warp
+//   shared buffers; the only barrier is a __syncwarp a row.
+// - The horizontal Gaussian (symmetric taps 8, 28, 56, 72: 4 multiplies)
+//   reads the lane's 7 edge-clamped columns from that buffer; its rows
+//   go into a 7-row register ring, so the vertical pass is a sliding
+//   window in registers and the vertical halo is paid once per strip.
+// - The Sobel's and the vote's horizontal neighbours come by warp
+//   shuffles; their vertical parts are register rings too. Every ring
+//   has 7 slots and the walk is unrolled by 7, so each slot index is a
+//   constant and no register moves from slot to slot.
+// - The vote uses the reference's packed 4-bit fields (one add per
+//   neighbour). At most one bin can hold >= 5 of 9 votes, so that bin,
+//   found with one add and a mask, is the first maximum the gate wants.
+//
+// Float steps are spelled as __f*_rn intrinsics in the reference's order
+// (and the library is built -fmad=false): one fused multiply-add or an
+// approximate division would move angles across bin edges.
 #include "common.cuh"
 
 namespace {
-
-constexpr int TX = 32;
-constexpr int TY = 8;
-constexpr int HALO = 5;               // Gaussian 3 + Sobel 1 + vote 1
-constexpr int IW = TX + 2 * HALO;     // input tile
-constexpr int IH = TY + 2 * HALO;
-constexpr int SW = TX + 4;            // blurred tile: halo 2 (Sobel + vote)
-constexpr int SH = TY + 4;
-constexpr int QW = TX + 2;            // bins tile: halo 1 (vote)
-constexpr int QH = TY + 2;
-constexpr uint8_t NO_VOTE = 0xFF;     // outside the frame: no vote at all
-
-__constant__ int kGauss[7] = {8, 28, 56, 72, 56, 28, 8};
 
 // cv::fastAtan2's coefficients in degrees as float32, the values of
 // quant/color_gradient.py ATAN_P / ATAN_EPS / BIN_SCALE
@@ -59,113 +66,158 @@ __device__ __forceinline__ float fast_atan2_deg(float y, float x) {
   return a;
 }
 
-__global__ void cg_quantize_kernel(const uint8_t* __restrict__ bgr,
-                                   uint8_t* __restrict__ out, int H, int W,
-                                   float weak2) {
-  __shared__ uint8_t s_in[IH][IW][3];
-  __shared__ int32_t s_h[IH][SW][3];    // horizontal Gaussian pass
-  __shared__ uint8_t s_blur[SH][SW][3];
-  __shared__ uint8_t s_q[QH][QW];
-  __shared__ int32_t s_mag[QH][QW];
-  const int b = blockIdx.z;
-  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-  const int tid = threadIdx.y * TX + threadIdx.x;
-  const int nthr = TX * TY;
-  const uint8_t* img = bgr + (size_t)b * H * W * 3;
+constexpr int WARPS = 4;
+constexpr int SW = 28;    // output columns of a warp's strip
+constexpr int RING = 7;   // rows of every register ring; the walk is unrolled by it
 
-  // input tile, edge-replicated by clamping (the Gaussian's border rule)
-  for (int i = tid; i < IH * IW; i += nthr) {
-    const int ty = i / IW, tx = i % IW;
-    const int y = min(max(y0 + ty - HALO, 0), H - 1);
-    const int x = min(max(x0 + tx - HALO, 0), W - 1);
-    const uint8_t* p = img + ((size_t)y * W + x) * 3;
-    s_in[ty][tx][0] = p[0];
-    s_in[ty][tx][1] = p[1];
-    s_in[ty][tx][2] = p[2];
-  }
-  __syncthreads();
-  // horizontal 7-tap pass onto columns x0-2 .. x0+TX+1
-  for (int i = tid; i < IH * SW * 3; i += nthr) {
-    const int ch = i % 3, j = (i / 3) % SW, r = i / (3 * SW);
-    int32_t acc = 0;
+__device__ __forceinline__ int32_t gauss7(int32_t a0, int32_t a1, int32_t a2, int32_t a3,
+                                          int32_t a4, int32_t a5, int32_t a6) {
+  return 8 * (a0 + a6) + 28 * (a1 + a5) + 56 * (a2 + a4) + 72 * a3;
+}
+
+// What a lane knows of its strip for the whole walk.
+struct Strip {
+  const uint8_t* img;
+  uint8_t* out;
+  int H, W, cl, cr, cx, y0, y_end, lane;
+  int tap[7];  // byte offsets of the 7 edge-clamped input columns of the Gaussian
+  bool col_in, col_inner, col_out;
+  float weak2;
+};
+
+// A lane's register rings, indexed by step mod RING: the horizontal pass
+// (h), the Sobel's row parts of the blurred rows (gx: right - left, gs:
+// left + 2 mid + right), the 3-wide packed vote sums (hv) and the selected
+// squared magnitude (mag); plus the next input word, prefetched.
+struct Rings {
+  int32_t h[RING][3], gx[RING][3], gs[RING][3], mag[RING];
+  uint32_t hv[RING];
+  uint32_t wnext;
+  int dnext;
+};
+
+// one input row (edge-clamped) of the strip as aligned words: <= 3 + 3 * 38 bytes
+__device__ __forceinline__ uint32_t load_row(const Strip& t, int yi, int& delta) {
+  const int yc = min(max(yi, 0), t.H - 1);
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(t.img + ((size_t)yc * t.W + t.cl) * 3);
+  delta = (int)(sa & 3);
+  const uint32_t* A = reinterpret_cast<const uint32_t*>(sa & ~uintptr_t(3));
+  return 4 * t.lane < 3 * (t.cr - t.cl) + delta ? __ldg(A + t.lane) : 0u;
+}
+
+// One step of the walk at input row yi, ring slot S: horizontal pass of
+// row yi, blur row yi-3, Sobel and bin at row yi-4, vote at row yi-5.
+template <int S>
+__device__ __forceinline__ void walk_step(const Strip& t, Rings& g, uint32_t* buf, int yi) {
+  constexpr int P1 = (S + RING - 1) % RING, P2 = (S + RING - 2) % RING;
+  const unsigned full = 0xFFFFFFFFu;
+  const int delta = g.dnext;
+  buf[t.lane] = g.wnext;
+  g.wnext = load_row(t, yi + 1, g.dnext);
+  __syncwarp();
+  const uint8_t* rb = reinterpret_cast<const uint8_t*>(buf) + delta;
+
+  int32_t bl[3];
 #pragma unroll
-    for (int k = 0; k < 7; ++k) acc += kGauss[k] * s_in[r][j + k][ch];
-    s_h[r][j][ch] = acc;
+  for (int ch = 0; ch < 3; ++ch) {
+    g.h[S][ch] = gauss7(rb[t.tap[0] + ch], rb[t.tap[1] + ch], rb[t.tap[2] + ch],
+                        rb[t.tap[3] + ch], rb[t.tap[4] + ch], rb[t.tap[5] + ch],
+                        rb[t.tap[6] + ch]);
+    const int32_t acc = gauss7(g.h[(S + 1) % RING][ch], g.h[(S + 2) % RING][ch],
+                               g.h[(S + 3) % RING][ch], g.h[(S + 4) % RING][ch],
+                               g.h[(S + 5) % RING][ch], g.h[(S + 6) % RING][ch], g.h[S][ch]);
+    bl[ch] = min((acc + (1 << 15)) >> 16, 255);
   }
-  __syncthreads();
-  // vertical 7-tap pass onto rows y0-2 .. y0+TY+1, one rounding shift
-  for (int i = tid; i < SH * SW * 3; i += nthr) {
-    const int ch = i % 3, j = (i / 3) % SW, r = i / (3 * SW);
-    int32_t acc = 0;
 #pragma unroll
-    for (int k = 0; k < 7; ++k) acc += kGauss[k] * s_h[r + k][j][ch];
-    s_blur[r][j][ch] = (uint8_t)min((acc + (1 << 15)) >> 16, 255);
+  for (int ch = 0; ch < 3; ++ch) {
+    const int32_t L = __shfl_up_sync(full, bl[ch], 1);
+    const int32_t R = __shfl_down_sync(full, bl[ch], 1);
+    g.gx[S][ch] = R - L;
+    g.gs[S][ch] = L + 2 * bl[ch] + R;
   }
-  __syncthreads();
-  // Sobel, channel select and angle bin on the tile + 1-pixel halo. Only
-  // interior pixels need the Sobel (the border is bin 0 and never strong),
-  // and their 3x3 neighbourhood lies inside the frame.
-  for (int i = tid; i < QH * QW; i += nthr) {
-    const int r = i / QW, j = i % QW;
-    const int y = y0 + r - 1, x = x0 + j - 1;
-    uint8_t q = NO_VOTE;
-    int32_t smag = 0;
-    if (y >= 0 && y < H && x >= 0 && x < W) {
-      q = 0;
-      if (y > 0 && y < H - 1 && x > 0 && x < W - 1) {
-        const int sr = r + 1, sc = j + 1;  // this pixel in s_blur
-        int32_t bdx = 0, bdy = 0;
+
+  // Sobel, channel select and bin at row ys = yi-4. Only interior pixels
+  // need the Sobel (the border is bin 0 and never strong), and their 3x3
+  // neighbourhood lies inside the frame. v is the pixel's vote as a 4-bit
+  // field; no vote outside the frame.
+  const int ys = yi - 4;
+  uint32_t v = 0u;
+  int32_t smag = 0;
+  if (ys >= 0 && ys < t.H && t.col_in) {
+    v = 1u;
+    if (ys > 0 && ys < t.H - 1 && t.col_inner) {
+      int32_t bdx = 0, bdy = 0;
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch) {
-          const int32_t gxm = s_blur[sr - 1][sc + 1][ch] - s_blur[sr - 1][sc - 1][ch];
-          const int32_t gx0 = s_blur[sr][sc + 1][ch] - s_blur[sr][sc - 1][ch];
-          const int32_t gxp = s_blur[sr + 1][sc + 1][ch] - s_blur[sr + 1][sc - 1][ch];
-          const int32_t gym = s_blur[sr + 1][sc - 1][ch] - s_blur[sr - 1][sc - 1][ch];
-          const int32_t gy0 = s_blur[sr + 1][sc][ch] - s_blur[sr - 1][sc][ch];
-          const int32_t gyp = s_blur[sr + 1][sc + 1][ch] - s_blur[sr - 1][sc + 1][ch];
-          const int32_t dx = gxm + 2 * gx0 + gxp;
-          const int32_t dy = gym + 2 * gy0 + gyp;
-          const int32_t m = dx * dx + dy * dy;  // exact, < 2^24
-          if (ch == 0 || m > smag) {  // strict: the first channel wins ties
-            smag = m;
-            bdx = dx;
-            bdy = dy;
-          }
+      for (int ch = 0; ch < 3; ++ch) {
+        const int32_t dx = g.gx[P2][ch] + 2 * g.gx[P1][ch] + g.gx[S][ch];
+        const int32_t dy = g.gs[S][ch] - g.gs[P2][ch];
+        const int32_t m = dx * dx + dy * dy;  // exact, < 2^24
+        if (ch == 0 || m > smag) {  // strict: the first channel wins ties
+          smag = m;
+          bdx = dx;
+          bdy = dy;
         }
-        const float ang = fast_atan2_deg(__int2float_rn(bdy), __int2float_rn(bdx));
-        const int q16 = min(max(__float2int_rn(__fmul_rn(ang, BIN_SCALE)), 0), 255);
-        q = (uint8_t)(q16 & 7);
       }
+      const float ang = fast_atan2_deg(__int2float_rn(bdy), __int2float_rn(bdx));
+      const int q16 = min(max(__float2int_rn(__fmul_rn(ang, BIN_SCALE)), 0), 255);
+      v = 1u << (4 * (q16 & 7));
     }
-    s_q[r][j] = q;
-    s_mag[r][j] = smag;
   }
-  __syncthreads();
+  g.hv[S] = __shfl_up_sync(full, v, 1) + v + __shfl_down_sync(full, v, 1);
+  g.mag[S] = smag;
 
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  if (x >= W || y >= H) return;
-  int votes[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const uint8_t q = s_q[threadIdx.y + dy][threadIdx.x + dx];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) votes[k] += (q == k);
-    }
+  // vote at row yo = yi-5 over rows yi-6 .. yi-4
+  const int yo = yi - 5;
+  if (yo >= t.y0 && yo < t.y_end && t.col_out) {
+    const uint32_t votes = g.hv[P2] + g.hv[P1] + g.hv[S];  // 8 fields, each <= 9
+    const uint32_t ge5 = (votes + 0x33333333u) & 0x88888888u;
+    const bool border = yo == 0 || yo == t.H - 1 || t.cx == 0 || t.cx == t.W - 1;
+    const bool strong = ge5 != 0u && !border && __int2float_rn(g.mag[P1]) > t.weak2;
+    t.out[(size_t)yo * t.W + t.cx] =
+        strong ? (uint8_t)(1u << ((__ffs(ge5) - 1) >> 2)) : (uint8_t)0;
   }
-  int best = 0, best_votes = votes[0];
+}
+
+// RH rows of a strip, RH + 10 a multiple of RING (the walk's steps)
+__global__ void __launch_bounds__(32 * WARPS)
+cg_quantize_kernel(const uint8_t* __restrict__ bgr, uint8_t* __restrict__ out, int H,
+                   int W, int RH, float weak2) {
+  __shared__ uint32_t s_raw[WARPS][RING][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x0 = (blockIdx.x * WARPS + warp) * SW;
+  if (x0 >= W) return;  // the whole warp
+  Strip t;
+  t.img = bgr + (size_t)blockIdx.z * H * W * 3;
+  t.out = out + (size_t)blockIdx.z * H * W;
+  t.H = H;
+  t.W = W;
+  t.lane = lane;
+  t.y0 = blockIdx.y * RH;
+  t.y_end = min(t.y0 + RH, H);
+  t.weak2 = weak2;
+  // this lane's column (of the blurred, binned and voted planes); the
+  // strip's input columns are [cl, cr), edge-clamped taps index into them
+  t.cx = x0 - 2 + lane;
+  t.cl = max(x0 - 5, 0);
+  t.cr = min(x0 + SW + 5, W);
 #pragma unroll
-  for (int k = 1; k < 8; ++k) {
-    if (votes[k] > best_votes) {  // strict: the first maximum wins
-      best = k;
-      best_votes = votes[k];
-    }
+  for (int k = 0; k < 7; ++k) t.tap[k] = 3 * (min(max(t.cx + k - 3, 0), W - 1) - t.cl);
+  t.col_in = t.cx >= 0 && t.cx < W;
+  t.col_inner = t.cx > 0 && t.cx < W - 1;
+  t.col_out = lane >= 2 && lane < 2 + SW && t.cx < W;
+
+  Rings g = {};
+  g.wnext = load_row(t, t.y0 - 5, g.dnext);
+  uint32_t(*bufs)[32] = s_raw[warp];
+  for (int yi = t.y0 - 5; yi < t.y0 + RH + 5; yi += RING) {
+    walk_step<0>(t, g, bufs[0], yi);
+    walk_step<1>(t, g, bufs[1], yi + 1);
+    walk_step<2>(t, g, bufs[2], yi + 2);
+    walk_step<3>(t, g, bufs[3], yi + 3);
+    walk_step<4>(t, g, bufs[4], yi + 4);
+    walk_step<5>(t, g, bufs[5], yi + 5);
+    walk_step<6>(t, g, bufs[6], yi + 6);
   }
-  const bool border = y == 0 || y == H - 1 || x == 0 || x == W - 1;
-  const float smag = __int2float_rn(s_mag[threadIdx.y + 1][threadIdx.x + 1]);
-  const bool strong = !border && best_votes >= 5 && smag > weak2;
-  out[(size_t)b * H * W + (size_t)y * W + x] = strong ? (uint8_t)(1 << best) : (uint8_t)0;
 }
 
 }  // namespace
@@ -173,9 +225,16 @@ __global__ void cg_quantize_kernel(const uint8_t* __restrict__ bgr,
 extern "C" int odc_cg_quantize(const void* bgr, void* out, int B, int H, int W,
                                float weak2, void* stream) {
   if (B == 0 || H == 0 || W == 0) return 0;
-  const dim3 block(TX, TY);
-  const dim3 grid(odc::ceil_div(W, TX), odc::ceil_div(H, TY), B);
-  cg_quantize_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bgr, (uint8_t*)out, H, W, weak2);
+  const int strips = odc::ceil_div(W, SW);
+  // rows per warp (RH + 10 steps, a multiple of 7): long walks amortise
+  // the 10-row warm-up; shorter ones while the grid holds fewer than 16
+  // warps per SM
+  auto warps = [&](int rh) { return (long long)strips * odc::ceil_div(H, rh) * B; };
+  int rh = 60;
+  if (warps(rh) < 132 * 16) rh = 25;
+  if (warps(rh) < 132 * 16) rh = 11;
+  const dim3 grid(odc::ceil_div(strips, WARPS), odc::ceil_div(H, rh), B);
+  cg_quantize_kernel<<<grid, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)bgr, (uint8_t*)out, H, W, rh, weak2);
   return (int)cudaGetLastError();
 }

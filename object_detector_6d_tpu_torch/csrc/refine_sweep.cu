@@ -10,53 +10,123 @@
 // sits in VMEM and one grid step loops over all candidates and features
 // with dynamic 32-row windows and lane rotates.
 //
-// Bound on the H100: latency. Each feature reads one 16x16 int8 tile
-// (256 bytes, 16 rows of 16 bytes) from a D that stays in the 50 MB L2
-// (a 480x640 frame's D is 6.6 MB), and adds it; there are ~K*F = 1000
-// dependent tile reads per frame and almost no arithmetic. The simple
-// design: one block per (b, k), 256 threads = the 16x16 tile, each thread
-// walking the candidate's features and accumulating its pixel in a
-// register; the feature tables of the candidate are staged in shared
-// memory once. Candidates with nfeat == 0 write zeros. A tile that would
-// leave the plane reads zero (the wrapper rejects such inputs first).
+// Bound on the H100: bytes, and far below what launch and latency cost.
+// On the two-modality main path (B=32, 16 candidates, <= 63 features per
+// modality) a launch reads ~1.2 MB of distinct D bytes (the 16x16 tiles it
+// touches; D itself is 210 MB, far beyond the 50 MB L2, and was just
+// written by build_D) and writes 0.5 MB: ~0.6 us at 3.35 TB/s, against
+// ~4 M int8 adds. So the kernel has to keep many tile loads in flight and
+// spend few instructions on each:
+//
+// - A lane loads one whole 16-byte tile row as two aligned 16-byte words
+//   (c0 is arbitrary mod 16) and shifts the row out of them with a
+//   two-stage word select and a funnel shift; the two halves of a warp
+//   take two features, so one warp instruction moves two tiles.
+// - The candidate's features are split across the block's 4 warps, and
+//   each warp unrolls UNROLL feature pairs so their loads are in flight
+//   together. No bounds test: the wrapper has checked that every live
+//   tile lies inside its plane and that a frame's D fits int32 offsets.
+// - A lane adds its 16 bytes as packed 16-bit fields (bytes biased to
+//   u8, 2 fields per 32-bit add; <= 256 features * 255 < 2^16 per field)
+//   and unbiases at the end.
+// - The warps' 16x16 partial sums meet in shared memory (integer adds,
+//   so the order does not matter).
 #include "common.cuh"
 
 namespace {
 
 constexpr int MAX_F = 256;
+constexpr int WARPS = 4;
+constexpr int UNROLL = 4;
+constexpr int STEP = 2 * WARPS;  // features taken by the block per round
 
-__global__ void refine_sweep_kernel(const int8_t* __restrict__ D,
-                                    const int32_t* __restrict__ plane,
-                                    const int32_t* __restrict__ r0,
-                                    const int32_t* __restrict__ c0,
-                                    const int32_t* __restrict__ nfeat,
-                                    int32_t* __restrict__ out, int P, int Hp,
-                                    int Wp, int K, int F) {
-  __shared__ int32_t s_off[MAX_F];
-  __shared__ int32_t s_r[MAX_F];
-  __shared__ int32_t s_c[MAX_F];
+// 16 bytes starting at p as 4 little-endian words, from the two aligned
+// 16-byte words that hold them. The second word is read only when the row
+// crosses into it, and an aligned word that holds a byte of the row lies
+// in the same page as that byte.
+struct RowLoad {
+  uint4 lo, hi;
+  int off;
+};
+
+__device__ __forceinline__ RowLoad load_row(const int8_t* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uint4* q = reinterpret_cast<const uint4*>(a & ~uintptr_t(15));
+  RowLoad r;
+  r.off = (int)(a & 15);
+  r.lo = __ldg(q);
+  r.hi = r.off ? __ldg(q + 1) : make_uint4(0u, 0u, 0u, 0u);
+  return r;
+}
+
+__device__ __forceinline__ void add_row(const RowLoad& r, uint32_t lo[4], uint32_t hi[4]) {
+  const uint32_t w[8] = {r.lo.x, r.lo.y, r.lo.z, r.lo.w, r.hi.x, r.hi.y, r.hi.z, r.hi.w};
+  const int q = r.off >> 2;
+  const uint32_t sh = (uint32_t)(r.off & 3) * 8u;
+  uint32_t s1[7], s2[5];
+#pragma unroll
+  for (int j = 0; j < 7; ++j) s1[j] = (q & 1) ? w[j + 1] : w[j];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) s2[j] = (q & 2) ? s1[j + 2] : s1[j];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t v = __funnelshift_r(s2[j], s2[j + 1], sh) ^ 0x80808080u;  // int8 -> u8
+    lo[j] += v & 0x00FF00FFu;         // bytes 4j, 4j+2
+    hi[j] += (v >> 8) & 0x00FF00FFu;  // bytes 4j+1, 4j+3
+  }
+}
+
+__global__ void __launch_bounds__(32 * WARPS)
+refine_sweep_kernel(const int8_t* __restrict__ D, const int32_t* __restrict__ plane,
+                    const int32_t* __restrict__ r0, const int32_t* __restrict__ c0,
+                    const int32_t* __restrict__ nfeat, int32_t* __restrict__ out,
+                    int P, int Hp, int Wp, int K, int F) {
+  __shared__ int32_t s_off[MAX_F];  // tile origin within the frame's D
+  __shared__ int32_t s_sum[256];
   const int bk = blockIdx.x;  // b * K + k
   const int b = bk / K;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
   const int n = min(max(nfeat[bk], 0), F);
   const size_t fbase = (size_t)bk * F;
-  for (int f = tid; f < n; f += blockDim.x) {
-    s_off[f] = plane[fbase + f];
-    s_r[f] = r0[fbase + f];
-    s_c[f] = c0[fbase + f];
+  for (int f = tid; f < n; f += blockDim.x)
+    s_off[f] = (plane[fbase + f] * Hp + r0[fbase + f]) * Wp + c0[fbase + f];
+  for (int i = tid; i < 256; i += blockDim.x) s_sum[i] = 0;
+  __syncthreads();
+
+  const int8_t* Db = D + (size_t)b * P * Hp * Wp;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ty = lane & 15;
+  const int row = ty * Wp;
+  uint32_t lo[4] = {0u, 0u, 0u, 0u}, hi[4] = {0u, 0u, 0u, 0u};
+  int cnt = 0;
+  for (int f0 = 2 * warp + (lane >> 4); f0 < n; f0 += STEP * UNROLL) {
+    RowLoad r[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int f = f0 + u * STEP;
+      if (f < n) r[u] = load_row(Db + s_off[f] + row);
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (f0 + u * STEP < n) {
+        add_row(r[u], lo, hi);
+        ++cnt;
+      }
+    }
+  }
+  if (cnt) {
+    const int bias = 128 * cnt;
+    int32_t* dst = s_sum + ty * 16;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      atomicAdd(dst + 4 * j + 0, (int)(lo[j] & 0xFFFFu) - bias);
+      atomicAdd(dst + 4 * j + 1, (int)(hi[j] & 0xFFFFu) - bias);
+      atomicAdd(dst + 4 * j + 2, (int)(lo[j] >> 16) - bias);
+      atomicAdd(dst + 4 * j + 3, (int)(hi[j] >> 16) - bias);
+    }
   }
   __syncthreads();
-  const int8_t* Db = D + (size_t)b * P * Hp * Wp;
-  int32_t acc = 0;
-  for (int f = 0; f < n; ++f) {
-    const int p = s_off[f];
-    const int r = s_r[f] + ty;
-    const int c = s_c[f] + tx;
-    if (p >= 0 && p < P && r >= 0 && r < Hp && c >= 0 && c < Wp)
-      acc += (int32_t)Db[((size_t)p * Hp + r) * Wp + c];
-  }
-  out[(size_t)bk * 256 + tid] = acc;
+  for (int i = tid; i < 256; i += blockDim.x) out[(size_t)bk * 256 + i] = s_sum[i];
 }
 
 }  // namespace
@@ -65,8 +135,9 @@ extern "C" int odc_refine_sweep(const void* D, const void* plane,
                                 const void* r0, const void* c0,
                                 const void* nfeat, void* out, int B, int P,
                                 int Hp, int Wp, int K, int F, void* stream) {
-  if (F > MAX_F || B * K == 0) return B * K == 0 ? 0 : (int)cudaErrorInvalidValue;
-  refine_sweep_kernel<<<B * K, 256, 0, (cudaStream_t)stream>>>(
+  if (B * K == 0) return 0;
+  if (F > MAX_F || (long long)P * Hp * Wp > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  refine_sweep_kernel<<<B * K, 32 * WARPS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)D, (const int32_t*)plane, (const int32_t*)r0,
       (const int32_t*)c0, (const int32_t*)nfeat, (int32_t*)out, P, Hp, Wp, K,
       F);

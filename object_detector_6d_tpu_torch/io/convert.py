@@ -49,7 +49,7 @@ def pose_detector_from_state(
     views: Dict[Tuple[str, int], Mapping],
     params,
     model_points: int = 1024,
-    device="cpu",
+    device="cuda",
 ) -> PoseDetector:
     """A PoseDetector holding the given detector configuration, templates
     and views."""

@@ -44,7 +44,7 @@ class FusedScene:
     """Per-(H, W, K) fused geometry: depth batch -> [B, 8, H, W] planes."""
 
     def __init__(self, height: int, width: int, K, window_size: int = 5,
-                 device="cpu"):
+                 device="cuda"):
         if window_size != 5:
             raise ValueError("the fused geometry is specialised to window 5")
         self.height, self.width = height, width

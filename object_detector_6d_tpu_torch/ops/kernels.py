@@ -1,10 +1,13 @@
 """Build and bind the package's hand-written Hopper kernels (``csrc/``).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes``, at first use:
+At first use every ``csrc/*.cu`` file is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into ONE shared
+library with a plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o <build>/libodc_torch_kernels.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o <build>/libodc_torch_kernels.so *.o
 
 The library lands in ``build/odc_torch_kernels/<hash>/`` at the repo root,
 named by a hash of the sources and flags, so an edited source rebuilds
@@ -34,10 +37,10 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[2] / "build" / "odc_torch_kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+LINK_FLAGS = [*ARCH, "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -64,8 +67,8 @@ _lib = None
 build_info: dict = {}
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(src_dir: pathlib.Path):
+    return sorted(src_dir.glob("*.cu")) + sorted(src_dir.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -83,12 +86,54 @@ def _nvcc() -> str:
     )
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+def source_hash(src_dir: pathlib.Path = CSRC) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for p in _sources(src_dir):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def build(src_dir: pathlib.Path = CSRC, root: pathlib.Path = None):
+    """Compile ``src_dir/*.cu`` into ``root/<hash>/libodc_torch_kernels.so``
+    unless it is there already; returns (path, nvcc's output)."""
+    out_dir = (BUILD_ROOT if root is None else root) / source_hash(src_dir)
+    so = out_dir / "libodc_torch_kernels.so"
+    log = ""
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f".tmp-{os.getpid()}"
+        nvcc = _nvcc()
+        jobs = []
+        for cu in sorted(src_dir.glob("*.cu")):
+            obj = f"{tmp}-{cu.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(src_dir), "-c", "-o", obj, str(cu)]
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        outs = [(obj, proc.communicate()[0], proc.returncode) for obj, proc in jobs]
+        log = "".join(out for _, out, _ in outs)
+        if any(rc != 0 for _, _, rc in outs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        cmd = [nvcc, *LINK_FLAGS, "-o", f"{tmp}.so", *(obj for obj, _, _ in outs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(f"{tmp}.so", so)
+        for obj, _, _ in outs:
+            os.remove(obj)
+        (out_dir / "nvcc.log").write_text(log)
+    return so, log
+
+
+def load(so) -> ctypes.CDLL:
+    """A built kernel library with its C signatures set."""
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def library() -> ctypes.CDLL:
@@ -100,29 +145,11 @@ def library() -> ctypes.CDLL:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA kernels need a CUDA build of PyTorch and a visible GPU")
-        out_dir = BUILD_ROOT / source_hash()
-        so = out_dir / "libodc_torch_kernels.so"
         t0 = time.time()
-        log = ""
-        if not so.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f".tmp-{os.getpid()}.so"
-            cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, so)
-            (out_dir / "nvcc.log").write_text(log)
-        lib = ctypes.CDLL(str(so))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        so, log = build()
+        _lib = load(so)
         build_info.update(path=str(so), seconds=time.time() - t0, log=log)
-        _lib = lib
-        return lib
+        return _lib
 
 
 def check(code: int, what: str) -> None:

@@ -73,6 +73,8 @@ def refine_sweep_batched(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
     K, F = plane_idx.shape[1], plane_idx.shape[2]
     if F > MAX_F:
         raise ValueError(f"refine sweep: {F} features per candidate > {MAX_F}")
+    if P * Hp * Wp >= 2 ** 31:
+        raise ValueError(f"refine sweep: a frame's D {P}x{Hp}x{Wp} exceeds int32 offsets")
     out = torch.empty((B, K, 16, 16), dtype=torch.int32, device=d_planes.device)
     lib = kernels.library()
     code = lib.odc_refine_sweep(

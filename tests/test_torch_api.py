@@ -8,6 +8,7 @@ import inspect
 
 import numpy as np
 import pytest
+import torch
 
 from object_detector_6d_tpu.api.detector import Detector as RefDetector
 from object_detector_6d_tpu.api.pipeline import PoseDetector as RefPoseDetector
@@ -63,10 +64,44 @@ def test_color_gradient_needs_rgb():
     when a view or a batch comes without its colour frames."""
     K = np.array([[500.0, 0, 32], [0, 500.0, 24], [0, 0, 1]])
     depth = np.full((48, 64), 800, np.uint16)
-    pd = PoseDetector()
+    pd = PoseDetector(device="cpu")
     with pytest.raises(ValueError, match="rgb"):
         pd.add_view("obj", depth, K, np.ones((48, 64), np.uint8))
     with pytest.raises(ValueError, match="rgb"):
         pd.detect_fused_batch(depth[None], K)
     with pytest.raises(ValueError, match="rgb"):
         pd.detect_fused(depth, K)
+
+
+def test_pose_detector_defaults_to_the_card():
+    assert PoseDetector().device.type == "cuda"
+
+
+@pytest.mark.parametrize("name", ["PoseDetector.__init__", "pose_detector_from_state",
+                                  "make_detect_program", "pack_views", "FusedScene.__init__"])
+def test_entry_points_default_to_the_card(name):
+    from object_detector_6d_tpu_torch.api import detect_program
+    from object_detector_6d_tpu_torch.io import convert
+    from object_detector_6d_tpu_torch.ops import geometry
+
+    fn = {"PoseDetector.__init__": PoseDetector.__init__,
+          "pose_detector_from_state": convert.pose_detector_from_state,
+          "make_detect_program": detect_program.make_detect_program,
+          "pack_views": detect_program.pack_views,
+          "FusedScene.__init__": geometry.FusedScene.__init__}[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_detect_raises_without_a_card():
+    """Without a card, a detect call on the default device raises; it
+    never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    K = np.array([[500.0, 0, 32], [0, 500.0, 24], [0, 0, 1]])
+    depth = np.full((48, 64), 800, np.uint16)
+    rgb = np.zeros((48, 64, 3), np.uint8)
+    pd = PoseDetector()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        pd.detect_fused_batch(depth[None], K, rgb[None])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        pd.detect_fused(depth, K, rgb)

@@ -75,14 +75,19 @@ def test_fused_scene_kernel_equals_twin(dev, H, W):
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
 
 
-@pytest.mark.parametrize("H,W", [(48, 64), (37, 90)])
-def test_cg_quantize_kernel_equals_twin(dev, H, W):
+@pytest.mark.parametrize("B,H,W", [(3, 48, 64), (3, 37, 90), (1, 7, 9), (2, 479, 641),
+                                   (1, 480, 29), (1, 480, 28), (1, 480, 57), (2, 65, 113),
+                                   (1, 63, 40), (1, 1, 1), (3, 2, 70)])
+def test_cg_quantize_kernel_equals_twin(dev, B, H, W):
+    """Frames of every size class: smaller than one warp strip (28 output
+    columns) or one row walk, one pixel either side of them, and the odd
+    479x641; gray rows (tied channels) and noisy rows, at B = 1 and more."""
     rng = np.random.RandomState(H)
     yy, xx = np.mgrid[0:H, 0:W]
     base = ((xx // 6 + yy // 6) % 2) * 150
-    bgr = np.stack([base[None] + rng.randint(0, 60, (3, H, W)) for _ in range(3)], -1)
-    bgr[:, : H // 3] = bgr[:, : H // 3, :, :1]  # gray rows: tied channels
-    bgr = torch.as_tensor(np.clip(bgr, 0, 255).astype(np.uint8), device=dev)  # [3, H, W, 3]
+    bgr = np.stack([base[None] + rng.randint(0, 60, (B, H, W)) for _ in range(3)], -1)
+    bgr[:, : H // 3 + 1] = bgr[:, : H // 3 + 1, :, :1]  # gray rows: tied channels
+    bgr = torch.as_tensor(np.clip(bgr, 0, 255).astype(np.uint8), device=dev)  # [B, H, W, 3]
     for weak in (10.0, 40.0):
         got = quantize.cg_quantize_batched(bgr, weak)
         torch.cuda.synchronize()
@@ -100,3 +105,69 @@ def test_coarse_sweep_kernel_equals_twin(dev):
         got = refine.coarse_sweep(D, *tab, nfeat, oh, ow)
         torch.cuda.synchronize()
         assert torch.equal(got, refine.coarse_sweep_plain(D, *tab, nfeat, oh, ow))
+
+
+def _refine_case(rng, dev, B, P, Hp, Wp, K, F, nfeat):
+    D = torch.as_tensor(rng.randint(-128, 128, (B, P, Hp, Wp)).astype(np.int8), device=dev)
+    plane = torch.as_tensor(rng.randint(0, P, (B, K, F)), dtype=torch.int32, device=dev)
+    r0 = torch.as_tensor(rng.randint(0, Hp - 15, (B, K, F)), dtype=torch.int32, device=dev)
+    c0 = torch.as_tensor(rng.randint(0, Wp - 15, (B, K, F)), dtype=torch.int32, device=dev)
+    return D, plane, r0, c0, torch.as_tensor(nfeat, dtype=torch.int32, device=dev)
+
+
+def _refine_equal(D, plane, r0, c0, nfeat):
+    got = refine.refine_sweep_batched(D, plane, r0, c0, nfeat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, refine.refine_sweep_plain(D, plane, r0, c0, nfeat))
+
+
+@pytest.mark.parametrize("Wp", [80, 53])
+def test_refine_kernel_every_column_residue(dev, Wp):
+    """c0 at every residue mod 16 (two aligned words, or one when c0 is a
+    multiple of 16 on an aligned row), on aligned and odd plane widths."""
+    rng = np.random.RandomState(Wp)
+    B, P, Hp, K, F = 2, 3, 24, 16, 16
+    D, plane, r0, c0, _ = _refine_case(rng, dev, B, P, Hp, Wp, K, F, np.zeros((B, K)))
+    c0 = np.arange(F) + 16 * rng.randint(0, (Wp - 31) // 16 + 1, (B, K, F))
+    c0[:, :, 0] = Wp - 16
+    c0 = torch.as_tensor(c0, dtype=torch.int32, device=dev)
+    nfeat = torch.full((B, K), F, dtype=torch.int32, device=dev)
+    _refine_equal(D, plane, r0, c0, nfeat)
+
+
+def test_refine_kernel_tiles_flush_with_the_far_edges(dev):
+    """Tiles at r0 = Hp-16, c0 = Wp-16 of the last plane of the last frame:
+    the last byte read is the tensor's last byte."""
+    rng = np.random.RandomState(11)
+    B, P, Hp, Wp, K, F = 2, 4, 19, 37, 3, 5
+    D, plane, r0, c0, _ = _refine_case(rng, dev, B, P, Hp, Wp, K, F, np.full((B, K), F))
+    plane[-1], r0[-1], c0[-1] = P - 1, Hp - 16, Wp - 16
+    nfeat = torch.full((B, K), F, dtype=torch.int32, device=dev)
+    _refine_equal(D, plane, r0, c0, nfeat)
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 255, refine.MAX_F])
+def test_refine_kernel_feature_counts(dev, n):
+    """nfeat of 0, 1, around one round of the block's warps, and MAX_F,
+    beside candidates with other counts; repeated features included."""
+    rng = np.random.RandomState(n)
+    B, P, Hp, Wp, K, F = 2, 5, 33, 41, 4, refine.MAX_F
+    nfeat = rng.randint(0, F + 1, (B, K))
+    nfeat[0, 0] = n
+    nfeat[1, 3] = n
+    D, plane, r0, c0, nfeat = _refine_case(rng, dev, B, P, Hp, Wp, K, F, nfeat)
+    plane[0, 1, 1::2], r0[0, 1, 1::2], c0[0, 1, 1::2] = plane[0, 1, 0], r0[0, 1, 0], c0[0, 1, 0]
+    _refine_equal(D, plane, r0, c0, nfeat)
+
+
+def test_refine_kernel_main_path_shape(dev):
+    """The two-modality main path's D [32, 200, 128, 256] with 16
+    candidates of up to 63 features, response values 0..4."""
+    rng = np.random.RandomState(32)
+    B, P, Hp, Wp, K, F = 32, 200, 128, 256, 16, 63
+    D = torch.as_tensor(rng.randint(0, 5, (B, P, Hp, Wp)).astype(np.int8), device=dev)
+    _, plane, r0, c0, nfeat = _refine_case(rng, dev, B, P, 16, 16, K, F,
+                                           rng.randint(0, F + 1, (B, K)))
+    r0 = torch.as_tensor(rng.randint(0, 113, (B, K, F)), dtype=torch.int32, device=dev)
+    c0 = torch.as_tensor(rng.randint(0, 241, (B, K, F)), dtype=torch.int32, device=dev)
+    _refine_equal(D, plane, r0, c0, nfeat)

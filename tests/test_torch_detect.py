@@ -130,7 +130,8 @@ def test_two_modality_detect_fused_batch_equals_reference():
 def test_port_add_view_equals_reference(modalities):
     ref, _, _ = _trained(modalities)
     dep, gray, mask = scenes.snowman_scene()
-    own = PoseDetector(detector=Detector(modalities=modalities), model_points=512)
+    own = PoseDetector(detector=Detector(modalities=modalities), model_points=512,
+                       device="cpu")
     assert own.add_view("obj", dep, K, mask.astype(np.uint8) * 255,
                         rgb=_view_rgb(modalities, gray)) == 0
     assert len(own.detector.class_templates["obj"][0]) == 2 * len(modalities)

@@ -65,7 +65,7 @@ def _p99_deg(a, b):
 def test_fused_scene_twin_vs_pallas_kernel():
     deps = _depths()
     want = np.asarray(RefFusedScene(H, W, K_SMALL)(jnp.asarray(deps), interpret=True))
-    got = FusedScene(H, W, K_SMALL)(torch.as_tensor(deps.astype(np.int32))).numpy()
+    got = FusedScene(H, W, K_SMALL, device="cpu")(torch.as_tensor(deps.astype(np.int32))).numpy()
     assert got.shape == want.shape == (2, 8, H, W)
     np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     valid = want[:, 6] > 0
@@ -81,7 +81,7 @@ def test_fused_scene_twin_vs_pallas_kernel():
 
 def test_pack_scene7_equals_reference():
     """The organized cloud + normals -> [H*W, 7] rows with validity."""
-    planes = FusedScene(H, W, K_SMALL)(torch.as_tensor(_depths().astype(np.int32)))
+    planes = FusedScene(H, W, K_SMALL, device="cpu")(torch.as_tensor(_depths().astype(np.int32)))
     img = planes[:, :6].permute(0, 2, 3, 1).contiguous()  # [B, H, W, 6]
     got = pack_scene7(img).numpy()
     for b in range(2):

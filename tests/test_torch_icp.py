@@ -46,7 +46,7 @@ def _scene_and_model(n_model=160):
     dep, _, mask = scenes.snowman_scene(width=W, height=H, cx=64, cy=48, scale=0.3,
                                         checker_px=4)
     dep2, _, _ = scenes.render_translated(dep, mask, K_SMALL, T_TRUE)
-    fs = FusedScene(H, W, K_SMALL)
+    fs = FusedScene(H, W, K_SMALL, device="cpu")
     planes = fs(torch.as_tensor(np.stack([dep, dep2]).astype(np.int32)))
     scene = planes_to_scene8(planes[1:]).numpy()  # [1, H*W, 8]
     view = planes[0].numpy()  # [8, H, W]
@@ -144,7 +144,7 @@ def test_lift_seeds_equal_reference(lift_impl):
     port_run = dp.make_detect_program(("DepthNormal",), (5, 8), (H, W),
                                       DepthNormalParams(), ColorGradientParams(), K_SMALL,
                                       max_candidates=K_cap, num_seeds=S, lift_window=48,
-                                      lift_impl=lift_impl)
+                                      lift_impl=lift_impl, device="cpu")
     port_lift = _closure_fn(port_run, "lift_and_refine")
     port_lift = _closure_fn(port_lift, "lift")
 
@@ -167,7 +167,7 @@ def test_lift_seeds_equal_reference(lift_impl):
     packed[3, :-1] = rng.randint(0, 3, K_cap)
     packed[4, :-1] = rng.uniform(size=K_cap) > 0.2
     r_views = ref_dp.pack_views(ref_bank, views, 160)
-    p_views = dp.pack_views(bank, views, 160)
+    p_views = dp.pack_views(bank, views, 160, device="cpu")
     _, r_keep, r_seed_ok, r_pose0, *_ = ref_lift(
         jnp.asarray(z_img), None, jnp.asarray(packed), r_views)
     _, keep, seed_ok, pose0, *_ = port_lift(

@@ -66,7 +66,7 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
         dn_quantize_batched(_meta(1, 16, 16, dtype=torch.int32))
     with pytest.raises(RuntimeError, match="kernel path"):
         response_spread_batched(_meta(1, 16, 16, dtype=torch.uint8), 5)
-    fs = FusedScene(16, 16, np.array([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]]))
+    fs = FusedScene(16, 16, np.array([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]]), device="cpu")
     with pytest.raises(RuntimeError, match="kernel path"):
         fs(_meta(1, 16, 16, dtype=torch.int32))
     i32 = torch.int32
