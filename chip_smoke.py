@@ -15,8 +15,9 @@ Phases (each raises on failure, so the script exits non-zero):
                noise; K6 (coarse sweep) against its twin at the main
                path's planes and tables and at an odd plane size, and
                beside one cuDNN conv2d that computes the same grid; K4
-               (refine sweep) against its twin on the arguments the match
-               program passes it; timings
+               (refine sweep) and K3 (spread + response) against their
+               twins on the arguments the match program passes them;
+               timings
    b. main     PoseDetector.detect_fused_batch(depths, K, rgbs) on B=32
                two-object 480x640 frames: every kernel K1-K6 launched, no
                candidate overflow, every objA pose within 1 cm and 5 deg of
@@ -29,7 +30,7 @@ Phases (each raises on failure, so the script exits non-zero):
                translations within 1 mm, rotations within 0.5 deg
 4. depth-only path, Detector(modalities=("DepthNormal",)): K2-K5 against
    their twins (main shapes and 479x641; K4 on random in-bounds tables)
-   with timings of K2, K3 and K5, then the same main
+   with timings of K2 and K5, then the same main
    and cpu checks as 3b and 3c on its own frames
 
 The two-modality workload is bench.py's: the snowman objA and its
@@ -50,7 +51,10 @@ PyTorch call that computes the same function (library_ms, null where
 there is none). K4 is timed alone, through its C entry point, on the
 arguments the two-modality match program passes it, with the L2 flushed
 before each batch; its wrapper's time (argument checks with a host sync)
-is logged beside it. The last line of standard output is
+is logged beside it. K3 is timed alone through its C entry point too,
+on the match program's 4 launches (ColorGradient and DepthNormal, both
+levels; repeated launches, the L2 warm as after K1 and K2). The last
+line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -307,11 +311,12 @@ def compare(name, got, want) -> float:
 
 
 def decimate(R: torch.Tensor, t: int) -> torch.Tensor:
-    """[B, 8, H, W] responses -> the match program's int8 T-decimated planes."""
+    """[B, 8, H, W] responses -> the match program's int8 T-decimated planes
+    (responses are 0..4: the int8 view holds the same values)."""
     from object_detector_6d_tpu_torch.match.program import decimate as mp_decimate
 
     H, W = R.shape[2:]
-    return mp_decimate(R.to(torch.int8), t, -(-H // t), -(-W // t)).contiguous()
+    return mp_decimate(R.view(torch.int8), t, -(-H // t), -(-W // t)).contiguous()
 
 
 def odd_frames(x: torch.Tensor) -> torch.Tensor:
@@ -420,9 +425,9 @@ def color_kernel_checks(dev, pd, rgbs_np, depths_np, gpu):
     return recs
 
 
-def capture_refine_args(dev, pd, depths_np, rgbs_np, K):
-    """The arguments of every K4 launch in one call of ``pd``'s match
-    program on these frames (D and its tables, one launch per modality)."""
+def _capture_args(dev, pd, depths_np, rgbs_np, K, wrapper: str):
+    """The arguments of every call of the kernel wrapper ``wrapper`` in
+    one call of ``pd``'s match program on these frames."""
     from object_detector_6d_tpu_torch.match import program as mp
 
     H, W = depths_np.shape[1:]
@@ -432,19 +437,90 @@ def capture_refine_args(dev, pd, depths_np, rgbs_np, K):
     sources = [torch.as_tensor(rgbs_np, device=dev) if n == "ColorGradient" else d
                for n in det.modality_names]
     calls = []
-    real = mp.refine_sweep_batched
+    real = getattr(mp, wrapper)
 
     def capture(*args):
         calls.append(args)
         return real(*args)
 
-    mp.refine_sweep_batched = capture
+    setattr(mp, wrapper, capture)
     try:
         with torch.no_grad():
             prog.match_program(sources, *pd.bank_tensors(det.get_bank())[0], THRESHOLD)
     finally:
-        mp.refine_sweep_batched = real
+        setattr(mp, wrapper, real)
     return calls
+
+
+def capture_refine_args(dev, pd, depths_np, rgbs_np, K):
+    """Every K4 launch's arguments (D and its tables, one per modality)."""
+    return _capture_args(dev, pd, depths_np, rgbs_np, K, "refine_sweep_batched")
+
+
+def capture_response_args(dev, pd, depths_np, rgbs_np, K):
+    """Every K3 launch's (q, T): per modality, level 0 then level 1."""
+    return _capture_args(dev, pd, depths_np, rgbs_np, K, "response_spread_batched")
+
+
+def response_launcher(lib, calls, dev):
+    """A function that launches K3's C entry point in ``lib`` on each
+    captured (q, T), into outputs allocated once, without the wrapper, so
+    that it times the kernel alone; and the outputs it writes."""
+    from object_detector_6d_tpu_torch.match.response import dist_vals
+    from object_detector_6d_tpu_torch.ops import kernels
+
+    stream = kernels.stream_ptr(dev)
+    vals = dist_vals()
+    prepared = [(q.contiguous(), int(t),
+                 torch.empty((q.shape[0], 8, *q.shape[1:]), dtype=torch.uint8, device=dev))
+                for q, t in calls]
+
+    def run():
+        for q, t, out in prepared:
+            kernels.check(lib.odc_response_spread(q.data_ptr(), out.data_ptr(), *q.shape, t,
+                                                  *vals, stream), "response_spread")
+
+    return run, [out for _, _, out in prepared]
+
+
+def response_main_path_record(dev, pd, depths_np, rgbs_np, K, gpu):
+    """K3 against its twin on the (q, T) of the two-modality match
+    program's 4 launches (ColorGradient and DepthNormal images at both
+    levels), timed through its C entry point. Returns its record."""
+    from object_detector_6d_tpu_torch.ops import kernels, response
+
+    calls = capture_response_args(dev, pd, depths_np, rgbs_np, K)
+    for q, t in calls:
+        compare(f"response_spread main path T={t} {tuple(q.shape)}",
+                response.response_spread_batched(q, t), response.response_spread_plain(q, t))
+    raw, outs = response_launcher(kernels.library(), calls, dev)
+    raw()
+    for (q, t), o in zip(calls, outs):
+        compare("response_spread C entry", o, response.response_spread_plain(q, t))
+
+    def plain():
+        for q, t in calls:
+            response.response_spread_plain(q, t)
+
+    px = sum(q.numel() for q, _ in calls)
+    bnd, by = bound_ms(9 * px, K3_INT * px)
+    shape = (f"{len(calls)} launches: " + " + ".join(f"{list(q.shape)} T={t}" for q, t in calls)
+             + " u8 -> [B,8,H,W] u8, the kernel alone")
+    ms = cuda_ms(raw)
+    # each launch alone, and the card's write rate on the same outputs
+    # (one fill_ of each: 8 of the 9 bytes a pixel, no reads)
+    each = [cuda_ms(response_launcher(kernels.library(), [c], dev)[0]) for c in calls]
+    fill = cuda_ms(lambda: [o.fill_(1) for o in outs])
+    log(f"kernel response_spread_batched: equal to twin on the two-modality main path's "
+        f"(q, T) ({shape}); the kernel alone {ms:.4f} ms per batch (launches "
+        f"{', '.join(f'{t:.4f}' for t in each)} ms); fill_ of its outputs {fill:.4f} ms; "
+        f"{gpu}")
+    return dict(
+        name="response_spread_batched", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/response_spread.cu",
+        replaces="object_detector_6d_tpu/ops/response_pallas.py:76",
+        max_abs_err=0.0, ms=ms, plain_ms=cuda_ms(plain, reps=5), bound_ms=bnd,
+        bound_by=by, library_ms=None, shape=shape)
 
 
 def refine_launcher(lib, calls, dev):
@@ -561,25 +637,14 @@ def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
     log(f"kernel dn_quantize_batched: equal to twin at {tuple(d_main.shape)} and "
         f"{tuple(d_odd.shape)}")
 
-    # K3 spread + response, level 0 (T=5) and level 1 (T=8)
+    # K3 spread + response, level 0 (T=5) and level 1 (T=8) (exactness
+    # only; its record comes from the two-modality main path's launches)
     q1 = q0[:, ::2, ::2].contiguous()
     q_odd = quantize.dn_quantize_batched(d_odd)
     for q, t in ((q0, 5), (q1, 8), (q_odd, 5), (q_odd, 8)):
         compare(f"response_spread T={t} {tuple(q.shape)}",
                 response.response_spread_batched(q, t),
                 response.response_spread_plain(q, t))
-    ms = (cuda_ms(lambda: response.response_spread_batched(q0, 5))
-          + cuda_ms(lambda: response.response_spread_batched(q1, 8)))
-    plain_ms = (cuda_ms(lambda: response.response_spread_plain(q0, 5), reps=5)
-                + cuda_ms(lambda: response.response_spread_plain(q1, 8), reps=5))
-    recs.append(dict(
-        name="response_spread_batched", route="cuda",
-        source="object_detector_6d_tpu_torch/csrc/response_spread.cu",
-        replaces="object_detector_6d_tpu/ops/response_pallas.py:76",
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-        shape=f"[{B},{H},{W}] T=5 + [{B},{H // 2},{W // 2}] T=8", library_ms=None))
-    px = q0.numel() + q1.numel()
-    recs[-1]["bound_ms"], recs[-1]["bound_by"] = bound_ms(9 * px, K3_INT * px)
     log("kernel response_spread_batched: equal to twin at T=5 and T=8, main and odd sizes")
 
     # K4 refine sweep (exactness only; its record comes from the
@@ -757,7 +822,7 @@ def run(dev, gpu: str) -> None:
     kernels.library()
     log(f"build: {time.time() - t0:.1f} s -> {kernels.build_info['path']}")
     for line in kernels.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     scenes = scenes_module()
@@ -769,6 +834,7 @@ def run(dev, gpu: str) -> None:
     pd2.detect_fused_batch(depths2[:2], K, rgbs2[:2])  # the bank on the card
     recs = color_kernel_checks(dev, pd2, rgbs2, depths2, gpu)
     recs.append(refine_main_path_record(dev, pd2, depths2, rgbs2, K, gpu))
+    recs.append(response_main_path_record(dev, pd2, depths2, rgbs2, K, gpu))
     counted2 = (quantize.cg_quantize_batched, quantize.dn_quantize_batched,
                 response.response_spread_batched, refine.coarse_sweep,
                 refine.refine_sweep_batched, geometry.FusedScene)

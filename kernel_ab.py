@@ -1,5 +1,5 @@
-"""Time K1 (cg_quantize) and K4 (refine_sweep) against another version of
-their sources, in turns, on one CUDA card.
+"""Time K1 (cg_quantize), K3 (response_spread) and K4 (refine_sweep)
+against another version of their sources, in turns, on one CUDA card.
 
     python3 kernel_ab.py OLD_CSRC_DIR
 
@@ -9,8 +9,10 @@ git-ignored directory such as ``build/``. Both versions are built with the
 same nvcc flags (ops/kernels.py) and called through the same C entry
 points, on the inputs of chip_smoke.py's two-modality main path: K1 on the
 B=32 480x640 BGR frames and on their pyr_down_u8 level (both launches of a
-batch), K4 on the two launches' own arguments, captured from one call of
-the match program. Each version's output must equal the plain twin's.
+batch), K3 and K4 on their launches' own arguments, captured from one call
+of the match program (K3: the ColorGradient and DepthNormal images at
+both levels, 4 launches; K4: 2). Each version's output must equal the
+plain twin's.
 Then each kernel is timed old, new, new, old (CUDA events, mean ms per
 batch over REPS batches after a warm-up; K4 also with the 50 MB L2
 flushed before each batch). The last line is one JSON object with every
@@ -40,7 +42,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
-    from object_detector_6d_tpu_torch.ops import kernels, quantize, refine
+    from object_detector_6d_tpu_torch.ops import kernels, quantize, refine, response
     from object_detector_6d_tpu_torch.quant.pyramid import pyr_down_u8
 
     gpu = cs.gpu_line()
@@ -79,20 +81,33 @@ def main() -> int:
     def k4(lib):
         return cs.refine_launcher(lib, calls, dev)[0]
 
+    # K3: the match program's four launches
+    k3_calls = cs.capture_response_args(dev, pd, depths, rgbs, K)
+
+    def k3(lib):
+        return cs.response_launcher(lib, k3_calls, dev)[0]
+
     for lib, tag in ((old, "old"), (new, "new")):
         k1(lib)()
         for x, o in zip(levels, outs):
             cs.compare(f"{tag} cg_quantize {tuple(x.shape)}", o,
                        quantize.cg_quantize_plain(x, pd.detector.cg_params.weak_threshold))
+        run, k3_outs = cs.response_launcher(lib, k3_calls, dev)
+        run()
+        for (q, t), out in zip(k3_calls, k3_outs):
+            cs.compare(f"{tag} response_spread T={t} {tuple(q.shape)}", out,
+                       response.response_spread_plain(q, t))
         run, k4_outs = cs.refine_launcher(lib, calls, dev)
         run()
         for a, out in zip(calls, k4_outs):
             cs.compare(f"{tag} refine_sweep {tuple(a[0].shape)}", out,
                        refine.refine_sweep_plain(*a))
-    cs.log(f"old and new K1, K4 equal their twins on the main path's inputs; {gpu}")
+    cs.log(f"old and new K1, K3, K4 equal their twins on the main path's inputs; {gpu}")
 
     res = {"gpu": gpu, "reps": REPS}
-    for name, make, timer in (("cg_quantize", k1, cs.cuda_ms), ("refine_sweep", k4, cs.cuda_ms),
+    for name, make, timer in (("cg_quantize", k1, cs.cuda_ms),
+                              ("response_spread", k3, cs.cuda_ms),
+                              ("refine_sweep", k4, cs.cuda_ms),
                               ("refine_sweep_cold", k4, cs.cuda_ms_cold)):
         turns = [("old", old), ("new", new), ("new", new), ("old", old)]
         times = [(tag, timer(make(lib), reps=REPS)) for tag, lib in turns]

@@ -229,8 +229,10 @@ def make_match_program(
     def coarse_stage(R1_b, coarse_tables, nfeat_l1, sizes_l1, threshold):
         # stride-T1 sweep == sparse sweep over the decimated planes:
         # score[t,r,c] = sum_f D[l*t1^2+(fy%t1)*t1+fx%t1, r+fy//t1, c+fx//t1]
-        # with every modality's planes stacked along the plane axis (K6)
-        D = torch.cat([decimate(R.to(torch.int8), t1, Hd1, Wd1) for R in R1_b], dim=1)
+        # with every modality's planes stacked along the plane axis (K6).
+        # Responses are 0..4, so their u8 bytes read as int8 are the same
+        # values: a view, not a copy
+        D = torch.cat([decimate(R.view(torch.int8), t1, Hd1, Wd1) for R in R1_b], dim=1)
         raw = coarse_sweep(D, *coarse_tables, gh, gw)
         B, nT = raw.shape[0], raw.shape[1]
         dev = raw.device
@@ -265,8 +267,9 @@ def make_match_program(
         return x2, y2, x2 // t0 - 8, y2 // t0 - 8
 
     def build_D(R):
-        """[B, 8, H0, W0] u8 -> decimated int8 planes [B, 8*t0^2, Hp2, Wp2]."""
-        D = decimate(R.to(torch.int8), t0, Hd, Wd)
+        """[B, 8, H0, W0] u8 -> decimated int8 planes [B, 8*t0^2, Hp2, Wp2]
+        (responses are 0..4: the int8 view holds the same values)."""
+        D = decimate(R.view(torch.int8), t0, Hd, Wd)
         return torch.nn.functional.pad(D, (0, Wp2 - Wd, 0, Hp2 - Hd))
 
     def post_stage(total16, tids, valid, n_above, x2, y2, nfeat_l0, threshold):

@@ -14,7 +14,7 @@ import torch
 from object_detector_6d_tpu_torch.match.response import dist_vals, response_maps, spread
 from object_detector_6d_tpu_torch.ops import kernels
 
-MAX_T = 16  # the kernel's shared-memory halo holds T - 1 <= 15 pixels
+MAX_T = 16  # a lane's window reaches at most 4 words past its own in the kernel
 
 
 def response_spread_plain(q: torch.Tensor, t: int) -> torch.Tensor:

@@ -40,14 +40,51 @@ def test_dn_quantize_kernel_equals_twin(dev, H, W):
     assert torch.equal(got, quantize.dn_quantize_plain(d))
 
 
-@pytest.mark.parametrize("t", [1, 5, 8, 16])
-def test_response_kernel_equals_twin(dev, t):
-    rng = np.random.RandomState(t)
-    q = (1 << rng.randint(0, 8, (2, 37, 90))) * (rng.uniform(size=(2, 37, 90)) < 0.3)
-    q = torch.as_tensor(q.astype(np.uint8), device=dev)
+def _response_equal(q, t):
     got = response.response_spread_batched(q, t)
     torch.cuda.synchronize()
     assert torch.equal(got, response.response_spread_plain(q, t))
+
+
+def _onehot(rng, shape, density=0.3):
+    q = (1 << rng.randint(0, 8, shape)) * (rng.uniform(size=shape) < density)
+    return torch.as_tensor(q.astype(np.uint8))
+
+
+# every T at 37x90 (W not a multiple of 4: the byte path); one strip of
+# 128 columns and its vector width either side, on aligned and unaligned
+# widths; W < T and H < T; 479x641; B = 1; the main path's shapes
+@pytest.mark.parametrize("B,H,W,t", [(2, 37, 90, t) for t in range(1, 17)] + [
+    (2, 37, 92, 5), (2, 37, 92, 13), (1, 9, 124, 8), (1, 9, 127, 8), (1, 9, 128, 8),
+    (1, 9, 129, 8), (1, 9, 132, 5), (1, 9, 256, 16), (1, 9, 260, 16), (1, 70, 3, 5),
+    (1, 3, 5, 8), (2, 3, 5, 8), (1, 5, 3, 16), (2, 479, 641, 5), (2, 479, 641, 8),
+    (1, 480, 640, 5), (32, 480, 640, 5), (32, 240, 320, 8)])
+def test_response_kernel_equals_twin(dev, B, H, W, t):
+    rng = np.random.RandomState(H * W + t)
+    _response_equal(_onehot(rng, (B, H, W)).to(dev), t)
+
+
+@pytest.mark.parametrize("t", [1, 5, 8, 11])
+def test_response_kernel_constant_frames(dev, t):
+    """All-zero and all-0xFF frames, and one frame of each."""
+    for fill in ((0, 0), (255, 255), (0, 255)):
+        q = torch.stack([torch.full((33, 200), f, dtype=torch.uint8) for f in fill]).to(dev)
+        _response_equal(q, t)
+
+
+@pytest.mark.parametrize("W", [256, 255])
+def test_response_kernel_every_byte_value(dev, W):
+    """At T=1 the spread byte is the input byte: a frame holding every
+    value 0..255 covers the whole response table."""
+    q = torch.arange(256, dtype=torch.int32).to(torch.uint8)[:W].repeat(3, 1)
+    _response_equal(torch.stack([q, q.flip(1)]).to(dev), 1)
+
+
+def test_response_kernel_unaligned_input(dev):
+    """A view one byte into its storage takes the byte path."""
+    rng = np.random.RandomState(4)
+    q = _onehot(rng, (2 * 24 * 64 + 1,)).to(dev)[1:].view(2, 24, 64)
+    _response_equal(q, 5)
 
 
 def test_refine_kernel_equals_twin(dev):

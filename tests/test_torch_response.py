@@ -31,10 +31,20 @@ def test_response_twin_equals_pallas_kernel(t):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("t,H,W", [(5, 47, 61), (8, 29, 130), (3, 16, 16)])
+@pytest.mark.parametrize("t,H,W", [(5, 47, 61), (8, 29, 130), (3, 16, 16)]
+                         + [(t, 13, 21) for t in range(1, 17)])
 def test_response_twin_equals_xla_any_size(t, H, W):
     rng = np.random.RandomState(H)
     q = _onehot(rng, 1, H, W, density=0.6)
     want = np.asarray(ref_rm(ref_spread(jnp.asarray(q[0]), t)))
     got = response_spread_batched(torch.as_tensor(q), t)[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_response_every_byte_value_equals_reference():
+    """At T=1 the spread is the identity: a frame of all 256 byte values
+    covers every entry of the kernel's response table."""
+    q = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    want = np.asarray(ref_rm(jnp.asarray(q)))
+    got = response_spread_batched(torch.as_tensor(q[None]), 1)[0]
     np.testing.assert_array_equal(got.numpy(), want)
