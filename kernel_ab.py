@@ -1,5 +1,6 @@
-"""Time K1 (cg_quantize), K3 (response_spread) and K4 (refine_sweep)
-against another version of their sources, in turns, on one CUDA card.
+"""Time K1 (cg_quantize), K2 (dn_quantize), K3 (response_spread) and K4
+(refine_sweep) against another version of their sources, in turns, on one
+CUDA card.
 
     python3 kernel_ab.py OLD_CSRC_DIR
 
@@ -9,7 +10,9 @@ git-ignored directory such as ``build/``. Both versions are built with the
 same nvcc flags (ops/kernels.py) and called through the same C entry
 points, on the inputs of chip_smoke.py's two-modality main path: K1 on the
 B=32 480x640 BGR frames and on their pyr_down_u8 level (both launches of a
-batch), K3 and K4 on their launches' own arguments, captured from one call
+batch), K2 on the B=32 480x640 int32 depth frames (a version whose entry
+point still takes the two-pass design's u8 scratch plane is given one),
+K3 and K4 on their launches' own arguments, captured from one call
 of the match program (K3: the ColorGradient and DepthNormal images at
 both levels, 4 launches; K4: 2). Each version's output must equal the
 plain twin's.
@@ -75,6 +78,26 @@ def main() -> int:
                                                   weak2, stream), "cg_quantize")
         return run
 
+    # K2: the batch's depth frames; the two-pass design's entry point also
+    # takes a u8 scratch plane (told from its source)
+    dn = pd.detector.dn_params
+    d0 = torch.as_tensor(depths.astype(np.int32), device=dev)
+    k2_out = torch.empty(d0.shape, dtype=torch.uint8, device=dev)
+    k2_scratch = torch.empty_like(k2_out)
+    old_two_pass = "void* scratch" in (args.old_csrc / "dn_quantize.cu").read_text()
+    tail = (*d0.shape, int(dn.distance_threshold), int(dn.difference_threshold), stream)
+    if old_two_pass:
+        sig = old.odc_dn_quantize.argtypes
+        old.odc_dn_quantize.argtypes = [sig[0], *sig]
+
+    def k2(lib):
+        ptrs = ((d0.data_ptr(), k2_scratch.data_ptr(), k2_out.data_ptr())
+                if lib is old and old_two_pass else (d0.data_ptr(), k2_out.data_ptr()))
+
+        def run():
+            kernels.check(lib.odc_dn_quantize(*ptrs, *tail), "dn_quantize")
+        return run
+
     # K4: the match program's two launches
     calls = cs.capture_refine_args(dev, pd, depths, rgbs, K)
 
@@ -92,6 +115,11 @@ def main() -> int:
         for x, o in zip(levels, outs):
             cs.compare(f"{tag} cg_quantize {tuple(x.shape)}", o,
                        quantize.cg_quantize_plain(x, pd.detector.cg_params.weak_threshold))
+        k2_out.fill_(255)
+        k2(lib)()
+        cs.compare(f"{tag} dn_quantize {tuple(d0.shape)}", k2_out,
+                   quantize.dn_quantize_plain(d0, int(dn.distance_threshold),
+                                              int(dn.difference_threshold)))
         run, k3_outs = cs.response_launcher(lib, k3_calls, dev)
         run()
         for (q, t), out in zip(k3_calls, k3_outs):
@@ -102,10 +130,11 @@ def main() -> int:
         for a, out in zip(calls, k4_outs):
             cs.compare(f"{tag} refine_sweep {tuple(a[0].shape)}", out,
                        refine.refine_sweep_plain(*a))
-    cs.log(f"old and new K1, K3, K4 equal their twins on the main path's inputs; {gpu}")
+    cs.log(f"old and new K1, K2, K3, K4 equal their twins on the main path's inputs; {gpu}")
 
     res = {"gpu": gpu, "reps": REPS}
     for name, make, timer in (("cg_quantize", k1, cs.cuda_ms),
+                              ("dn_quantize", k2, cs.cuda_ms),
                               ("response_spread", k3, cs.cuda_ms),
                               ("refine_sweep", k4, cs.cuda_ms),
                               ("refine_sweep_cold", k4, cs.cuda_ms_cold)):

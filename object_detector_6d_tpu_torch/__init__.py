@@ -3,12 +3,13 @@
 A second package beside the JAX reference ``object_detector_6d_tpu``,
 with the same subpackage layout and module names. It runs on one NVIDIA
 H100 (hand-written ``sm_90a`` kernels under ``csrc/``). Every entry point
-(PoseDetector, pose_detector_from_state, make_detect_program, pack_views,
-FusedScene) defaults to ``device="cuda"``; ``device="cpu"`` asks for the
+(PoseDetector, Detector.match, ICP, pose_detector_from_state,
+make_detect_program, pack_views, FusedScene) defaults to ``device="cuda"``; ``device="cpu"`` asks for the
 CPU, where every kernel wrapper uses its plain PyTorch twin.
 
-It carries the fused detect path, with the reference's two modalities
-(ColorGradient + DepthNormal) or either one alone:
+It carries the fused detect path and, behind it, the host-orchestrated
+one, with the reference's two modalities (ColorGradient + DepthNormal) or
+either one alone:
 
     PoseDetector(detector=Detector(), device="cuda")
     .add_view(class_id, depth, K, mask, rgb)      training (templates + ICP model)
@@ -16,6 +17,11 @@ It carries the fused detect path, with the reference's two modalities
                                 -> coarse sweep -> top-K -> 16x16 refine
                                 -> geometry -> hypothesis lift
                                 -> projective ICP -> device cluster NMS -> [Pose]
+    .detect(depth, K, rgb)                        Detector.match (capacity ladder)
+                                -> window-quantile lift -> nearest-neighbour
+                                ICP (refine/icp.py) -> host NMS -> [Pose];
+                                detect_fused_batch falls back to it for a frame
+                                with more coarse candidates than hypothesis slots
 
 The package imports ``torch`` and numpy, never ``jax`` nor the
 reference package. What is still to port is listed in ROADMAP.md.

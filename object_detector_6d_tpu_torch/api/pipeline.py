@@ -1,10 +1,11 @@
 """End-to-end 6D detection (port of object_detector_6d_tpu/api/pipeline.py
-``PoseDetector``, fused path).
+``PoseDetector``).
 
     PoseDetector(detector=Detector(), device="cuda")
     .add_view(class_id, depth, K, mask, rgb[, view_pose])   training
     .detect_fused_batch(depths [B, H, W], K, rgbs [B, H, W, 3])
                                                   -> [[Pose]] per frame
+    .detect(depth [H, W], K, rgb [H, W, 3])       -> [Pose], host-orchestrated
 
 The default Detector has the reference's two modalities (ColorGradient on
 the u8 BGR frames, DepthNormal on the u16 depth); a detector with
@@ -12,15 +13,19 @@ ColorGradient needs ``rgb`` / ``rgbs`` and raises ValueError without
 them, a depth-only one (``Detector(modalities=("DepthNormal",))``) takes
 none. Training (``add_view``) runs on the host: LINEMOD templates through
 Detector.add_template, plus the view's masked cloud + FALS normals
-(sampled to ``model_points``) as the ICP model. Detection runs the fused
-program of api/detect_program.py on ``device`` and unpacks the device
-cluster-NMS records into Pose objects.
+(sampled to ``model_points``) as the ICP model. ``detect_fused_batch``
+runs the fused program of api/detect_program.py on ``device`` and unpacks
+the device cluster-NMS records into Pose objects. A frame with more
+coarse candidates than ``max_hypotheses`` slots falls back, as in the
+reference, to ``detect``: Detector.match over the capacity ladder ->
+cloud + FALS normals -> window depth quantiles lift each match to up to
+three translation seeds -> nearest-neighbour point-to-plane ICP
+(refine/icp.py) per hypothesis -> best seed per match -> residual gate ->
+pose-cluster NMS on the host.
 
 ``device`` defaults to the card ("cuda"); ``device="cpu"`` asks for the
 plain twins on the host. Without a card, a detect call on the default
-device raises: it never carries on on the CPU. A frame whose
-coarse candidates overflow ``max_hypotheses`` raises: the reference falls
-back to its host-orchestrated ``detect`` there, which is not ported yet.
+device raises: it never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -32,13 +37,15 @@ import numpy as np
 import torch
 
 from object_detector_6d_tpu_torch.api import detect_program as dp
-from object_detector_6d_tpu_torch.api.detector import Detector
+from object_detector_6d_tpu_torch.api.detector import Detector, Match
 from object_detector_6d_tpu_torch.core.config import DetectParams
+from object_detector_6d_tpu_torch.core.device import checked_device
 from object_detector_6d_tpu_torch.core.intrinsics import Intrinsics
 from object_detector_6d_tpu_torch.geom.backproject import depth_to_3d
 from object_detector_6d_tpu_torch.geom.normals import normals_fals
 from object_detector_6d_tpu_torch.match import program as mp
-from object_detector_6d_tpu_torch.refine.pose import Pose
+from object_detector_6d_tpu_torch.refine.icp import ICP, nanquantile, refine_one, split_scene
+from object_detector_6d_tpu_torch.refine.pose import Pose, cluster_poses
 from object_detector_6d_tpu_torch.utils.metrics import PipelineCounters, validate_frame
 
 
@@ -52,12 +59,39 @@ class _ViewRecord:
     view_pose: Optional[np.ndarray]  # model -> training camera, or None
 
 
-class CandidateOverflow(RuntimeError):
-    """More above-threshold coarse candidates than max_hypotheses."""
+def _geometry_single(depth: torch.Tensor, K) -> torch.Tensor:
+    """Cloud + FALS normals [H, W, 6] of one depth frame [H, W], on the
+    frame's device (the normal estimator is cached per shape and K)."""
+    cloud = depth_to_3d(depth, K)
+    return torch.cat([cloud, normals_fals(cloud, K)], -1)
+
+
+def _window_quantiles(z_img, centers, bboxes_wh, win: int) -> torch.Tensor:
+    """NaN-aware depth quantiles (q25, q50, q75) [n, 3] of the ``win``-sized
+    windows of ``z_img`` [H, W] around ``centers`` [n, 2] (x, y), restricted
+    to the match bboxes ``bboxes_wh`` [n, 2] grown by one pixel. Several
+    depth seeds make the lift robust to occluders inside the window; the
+    bbox restriction keeps the quantiles on objects much smaller than the
+    window. A window without a finite cell gives NaN."""
+    H, W = z_img.shape
+    dev = z_img.device
+    cx, cy = centers[:, 0], centers[:, 1]
+    x0 = torch.clamp(cx - win // 2, 0, W - win)
+    y0 = torch.clamp(cy - win // 2, 0, H - win)
+    step = torch.arange(win, device=dev)
+    xs_g = x0[:, None] + step  # [n, win]
+    ys_g = y0[:, None] + step
+    w = z_img[ys_g[:, :, None], xs_g[:, None, :]]  # [n, win, win]
+    bw, bh = bboxes_wh[:, 0:1], bboxes_wh[:, 1:2]
+    inx = (xs_g >= cx[:, None] - bw // 2 - 1) & (xs_g <= cx[:, None] + bw // 2 + 1)
+    iny = (ys_g >= cy[:, None] - bh // 2 - 1) & (ys_g <= cy[:, None] + bh // 2 + 1)
+    w = torch.where(iny[:, :, None] & inx[:, None, :], w, float("nan"))
+    qs = torch.tensor([0.25, 0.5, 0.75], dtype=torch.float32, device=dev)
+    return nanquantile(w.reshape(w.shape[0], -1), qs)
 
 
 class PoseDetector:
-    """Template-based 6D object detector, fused path."""
+    """Template-based 6D object detector (mirrors the reference API)."""
 
     def __init__(
         self,
@@ -65,6 +99,7 @@ class PoseDetector:
         params: Optional[DetectParams] = None,
         model_points: int = 1024,
         scene_window: int = 160,
+        scene_points_stride: int = 2,
         lift_impl: str = "hist",
         device="cuda",
     ):
@@ -72,6 +107,7 @@ class PoseDetector:
         self.params = params or DetectParams()
         self.model_points = model_points
         self.scene_window = scene_window
+        self.scene_stride = scene_points_stride
         self.lift_impl = lift_impl
         self.device = torch.device(device)
         self.views: Dict[Tuple[str, int], _ViewRecord] = {}
@@ -143,7 +179,8 @@ class PoseDetector:
     def detect_fused(self, depth_u16, K, rgb=None,
                      class_ids: Optional[Sequence[str]] = None,
                      match_threshold: Optional[float] = None) -> List[Pose]:
-        """One frame through the fused program."""
+        """One frame through the fused program (``detect`` on
+        coarse-candidate overflow)."""
         return self.detect_fused_batch(
             np.asarray(depth_u16)[None], K,
             None if rgb is None else np.asarray(rgb)[None],
@@ -208,10 +245,8 @@ class PoseDetector:
         """Launch the fused program; returns a handle for
         :meth:`detect_fused_finalize` (PyTorch queues the device work, so
         the call returns before the card finishes)."""
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"PoseDetector on {self.device}: no CUDA card is visible; pass "
-                "device='cpu' to run the plain twins on the host")
+        checked_device(self.device)
+        frames = (depths, rgbs)  # as given, for the overflow fallback
         if isinstance(depths, torch.Tensor):
             validate_frame(np.empty(tuple(depths.shape[1:3])), K,
                            None if rgbs is None else np.empty(tuple(rgbs.shape[1:])))
@@ -232,24 +267,24 @@ class PoseDetector:
         prog, K_cap = self.program(H, W, K)
         bargs, views, _ = self.bank_tensors(bank)
         flat = prog(sources, bargs, views, threshold, *self._nms_device_args(bank, K))
-        return (flat, B, K_cap, bank)
+        return (flat, B, K_cap, bank, *frames, K, class_ids, match_threshold)
 
     def detect_fused_finalize(self, handle) -> List[List[Pose]]:
         """Wait for a dispatch handle and unpack its cluster records."""
         if isinstance(handle[0], str):  # "empty": no templates registered
             return [[] for _ in range(handle[1])]
-        flat, B, K_cap, bank = handle
+        flat, B, K_cap, bank, depths, rgbs, K, class_ids, match_threshold = handle
         slots, n_raw, n_pass = dp.unflatten_cluster_outputs(
             flat.cpu().numpy().reshape(B, -1), K_cap)
         results: List[List[Pose]] = []
         for b in range(B):
             if int(n_raw[b]) > K_cap:
-                self.counters.inc("overflow")
-                raise CandidateOverflow(
-                    f"frame {b}: {int(n_raw[b])} coarse candidates > "
-                    f"max_hypotheses capacity {K_cap}; the host-orchestrated "
-                    "detect path the reference falls back to is ROADMAP "
-                    "queue 1 item 11 (raise max_hypotheses meanwhile)")
+                # coarse-candidate overflow: the host path keeps parity
+                self.counters.inc("overflow_fallback")
+                results.append(self.detect(
+                    _host(depths[b]), K, None if rgbs is None else _host(rgbs[b]),
+                    class_ids, match_threshold))
+                continue
             self.counters.inc("frames")
             self.counters.inc("matches", int(n_pass[b]))
             out: List[Pose] = []
@@ -272,3 +307,134 @@ class PoseDetector:
             self.counters.inc("detections", len(out))
             results.append(out)
         return results
+
+    def detect(self, depth_u16, K, rgb=None,
+               class_ids: Optional[Sequence[str]] = None,
+               match_threshold: Optional[float] = None) -> List[Pose]:
+        """Host-orchestrated pipeline on one frame: match -> lift -> ICP
+        per hypothesis -> score -> NMS."""
+        dev = checked_device(self.device)
+        validate_frame(depth_u16, K, rgb)
+        p = self.params
+        threshold = p.match_threshold if match_threshold is None else match_threshold
+        sources = self._sources(rgb, depth_u16)
+        matches = self.detector.match(sources, threshold, class_ids, device=dev)
+        self.counters.inc("frames")
+        self.counters.inc("matches", len(matches))
+        matches = matches[: p.max_hypotheses]
+        for m in matches:
+            self.counters.observe("match_similarity", m.similarity)
+        if not matches:
+            return []
+
+        depth = torch.as_tensor(np.asarray(depth_u16).astype(np.int32)).to(dev)
+        scene6 = _geometry_single(depth, K)
+        intr = Intrinsics.from_matrix(np.asarray(K))
+
+        # --- lift hypotheses (window depth quantiles on the device) ---
+        pre = []
+        centers = []
+        whs = []
+        for m in matches:
+            rec = self.views.get((m.class_id, m.template_id))
+            if rec is None:
+                continue
+            bw, bh = rec.bbox[2], rec.bbox[3]
+            pre.append((m, rec))
+            centers.append((int(m.x + bw // 2), int(m.y + bh // 2)))
+            whs.append((bw, bh))
+        if not pre:
+            return []
+        zqs = _window_quantiles(
+            scene6[..., 2],
+            torch.as_tensor(np.asarray(centers, np.int64), device=dev),
+            torch.as_tensor(np.asarray(whs, np.int64), device=dev),
+            self.scene_window).cpu().numpy()
+        # one hypothesis per distinct depth quantile (occluders in the
+        # window skew any single statistic)
+        hyps: List[Tuple[Match, _ViewRecord, np.ndarray, int]] = []
+        for mi, ((m, rec), zq) in enumerate(zip(pre, zqs)):
+            zs_u: List[float] = []
+            for z in (float(z) for z in zq if np.isfinite(z)):
+                if all(abs(z - z2) > 0.015 for z2 in zs_u):
+                    zs_u.append(z)
+            bw, bh = rec.bbox[2], rec.bbox[3]
+            for z in zs_u:
+                target = intr.reproject(m.x + bw / 2.0, m.y + bh / 2.0, z).numpy()
+                pose0 = np.eye(4, dtype=np.float32)
+                pose0[:3, 3] = target - rec.anchor_point
+                hyps.append((m, rec, pose0, mi))
+        if not hyps:
+            return []
+
+        # --- ICP per hypothesis with its own model cloud ---
+        models = np.stack([h[1].model_cloud for h in hyps])
+        poses0 = np.stack([h[2] for h in hyps])
+        scene_sub = scene6[:: self.scene_stride, :: self.scene_stride].reshape(-1, 6)
+        residuals, poses = _batched_icp(ICP.from_params(p.icp, dev), models,
+                                        scene_sub, poses0)
+
+        # keep the best-residual hypothesis per match (the first on ties)
+        best_by_match: Dict[int, int] = {}
+        for i, h in enumerate(hyps):
+            mi = h[3]
+            if mi not in best_by_match or residuals[i] < residuals[best_by_match[mi]]:
+                best_by_match[mi] = i
+        keep_idx = sorted(best_by_match.values())
+        hyps = [hyps[i] for i in keep_idx]
+        residuals = residuals[keep_idx]
+        poses = poses[keep_idx]
+
+        # --- score + NMS ---
+        out: List[Pose] = []
+        for i, (m, rec, _p0, _mi) in enumerate(hyps):
+            pose = poses[i]
+            if rec.view_pose is not None:
+                pose = pose @ rec.view_pose
+            out.append(Pose(
+                pose=np.asarray(pose, np.float64),
+                residual=float(residuals[i]),
+                num_votes=int(round(m.similarity * 100)),
+                class_id=m.class_id,
+                template_id=m.template_id,
+                match_x=m.x,
+                match_y=m.y,
+                match_similarity=m.similarity,
+            ))
+        for r in residuals:
+            self.counters.observe("icp_residual", float(r))
+        out = [q for q in out if q.residual <= p.max_residual]
+        clusters = cluster_poses(
+            out, translation_threshold=p.nms_radius_px / float(intr.fx))
+        self.counters.inc("detections", len(clusters))
+        return [c.mean_pose() for c in clusters]
+
+
+def _host(a) -> np.ndarray:
+    """One frame of a dispatch handle as numpy (batches may be tensors)."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _batched_icp(icp: ICP, models: np.ndarray, scene: torch.Tensor,
+                 poses0: np.ndarray):
+    """ICP of each (model, pose) pair against the scene [M, 6] on the
+    scene's device -> numpy (residuals [B], poses [B, 4, 4])."""
+    dev = scene.device
+    res, ps = _icp_run_multi(
+        torch.as_tensor(models, device=dev), scene,
+        torch.as_tensor(poses0, device=dev),
+        icp.iterations, *icp.scalars(), icp.num_levels)
+    return res.cpu().numpy(), ps.cpu().numpy()
+
+
+def _icp_run_multi(models, scene_pc, poses, iterations, tolerance,
+                   rejection_scale, num_levels):
+    """ICP where each hypothesis has its own model cloud [B, N, 6];
+    correspondences are capped at 0.015 * 2^level metres. The hypotheses
+    run one after another, so one [rows, M] distance block is alive at a
+    time."""
+    scene = split_scene(scene_pc)
+    out = [refine_one(model_pc, pose0, *scene, iterations, tolerance,
+                      rejection_scale, num_levels, corr_cap=0.015)
+           for model_pc, pose0 in zip(models, poses)]
+    return torch.stack([r for r, _ in out]), torch.stack([p for _, p in out])

@@ -48,8 +48,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # bgr u8 [B,H,W,3], out u8, B, H, W, weak_threshold^2, stream
     "odc_cg_quantize": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
-    # depth i32, scratch u8, out u8, B, H, W, distance_thr, difference_thr, stream
-    "odc_dn_quantize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # depth i32, out u8, B, H, W, distance_thr, difference_thr, stream
+    "odc_dn_quantize": [_P, _P, _I, _I, _I, _I, _I, _P],
     # q u8, out u8, B, H, W, T, dist_vals[5] (packed as 5 ints), stream
     "odc_response_spread": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # D i8, plane i32, r0 i32, c0 i32, nfeat i32, out i32, B, P, Hp, Wp, K, F, stream

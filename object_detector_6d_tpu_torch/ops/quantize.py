@@ -64,11 +64,10 @@ def dn_quantize_batched(depth: torch.Tensor, distance_threshold: int = 2000,
     d = depth.to(torch.int32).contiguous()
     kernels.require_cuda("dn_quantize_batched", d)
     B, H, W = d.shape
-    scratch = torch.empty((B, H, W), dtype=torch.uint8, device=d.device)
     out = torch.empty((B, H, W), dtype=torch.uint8, device=d.device)
     lib = kernels.library()
     code = lib.odc_dn_quantize(
-        d.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, H, W,
+        d.data_ptr(), out.data_ptr(), B, H, W,
         int(distance_threshold), int(difference_threshold),
         kernels.stream_ptr(d.device))
     kernels.check(code, "dn_quantize_batched")

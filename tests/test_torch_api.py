@@ -1,8 +1,8 @@
 """The port's public detector API has the JAX package's signatures: the
 parameters both have come in the same order with the same defaults, and
 every reference parameter exists in the port unless it is listed below
-with the reason it is absent. The port's only extra is PoseDetector's
-``device``, keyword-last."""
+with the reason it is absent. The port's only extra is ``device``, last, on
+the entry points that run on the card."""
 
 import inspect
 
@@ -12,20 +12,29 @@ import torch
 
 from object_detector_6d_tpu.api.detector import Detector as RefDetector
 from object_detector_6d_tpu.api.pipeline import PoseDetector as RefPoseDetector
+from object_detector_6d_tpu.refine.icp import ICP as RefICP
 from object_detector_6d_tpu_torch.api.detector import Detector
 from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+from object_detector_6d_tpu_torch.refine.icp import ICP
 
 # reference parameters the port does not take yet, and why
 ABSENT = {
     ("PoseDetector.__init__", "mesh"):
         "sharding over a device mesh: ROADMAP queue 1 item 19",
-    ("PoseDetector.__init__", "scene_points_stride"):
-        "read only by the host-orchestrated detect path: ROADMAP queue 1 item 11",
+    ("Detector.match", "fused"):
+        "fused=False asks for the host-orchestrated matcher (_match_reference over "
+        "match/sweep.py): ROADMAP queue 1 item 11, what is left of it",
 }
-PORT_ONLY = {("PoseDetector.__init__", "device")}
+PORT_ONLY = {("PoseDetector.__init__", "device"), ("Detector.match", "device"),
+             ("ICP.from_params", "device")}
 
 CALLABLES = {
     "Detector.__init__": (RefDetector.__init__, Detector.__init__),
+    "Detector.match": (RefDetector.match, Detector.match),
+    "ICP.from_params": (RefICP.from_params, ICP.from_params),
+    "ICP.register_model_to_scene": (RefICP.register_model_to_scene,
+                                    ICP.register_model_to_scene),
+    "PoseDetector.detect": (RefPoseDetector.detect, PoseDetector.detect),
     "PoseDetector.__init__": (RefPoseDetector.__init__, PoseDetector.__init__),
     "PoseDetector.add_view": (RefPoseDetector.add_view, PoseDetector.add_view),
     "PoseDetector.detect_fused": (RefPoseDetector.detect_fused, PoseDetector.detect_fused),
@@ -78,7 +87,8 @@ def test_pose_detector_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("name", ["PoseDetector.__init__", "pose_detector_from_state",
-                                  "make_detect_program", "pack_views", "FusedScene.__init__"])
+                                  "make_detect_program", "pack_views", "FusedScene.__init__",
+                                  "Detector.match", "ICP.from_params"])
 def test_entry_points_default_to_the_card(name):
     from object_detector_6d_tpu_torch.api import detect_program
     from object_detector_6d_tpu_torch.io import convert
@@ -88,7 +98,8 @@ def test_entry_points_default_to_the_card(name):
           "pose_detector_from_state": convert.pose_detector_from_state,
           "make_detect_program": detect_program.make_detect_program,
           "pack_views": detect_program.pack_views,
-          "FusedScene.__init__": geometry.FusedScene.__init__}[name]
+          "FusedScene.__init__": geometry.FusedScene.__init__,
+          "Detector.match": Detector.match, "ICP.from_params": ICP.from_params}[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -105,3 +116,9 @@ def test_default_device_detect_raises_without_a_card():
         pd.detect_fused_batch(depth[None], K, rgb[None])
     with pytest.raises(RuntimeError, match="no CUDA card"):
         pd.detect_fused(depth, K, rgb)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        pd.detect(depth, K, rgb)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        pd.detector.match([rgb, depth], 80.0)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ICP().register_model_to_scene(np.zeros((8, 6), np.float32), np.zeros((8, 6), np.float32))

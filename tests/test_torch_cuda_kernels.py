@@ -40,6 +40,72 @@ def test_dn_quantize_kernel_equals_twin(dev, H, W):
     assert torch.equal(got, quantize.dn_quantize_plain(d))
 
 
+def _dn_equal(d, distance_threshold=2000, difference_threshold=50):
+    got = quantize.dn_quantize_batched(d, distance_threshold, difference_threshold)
+    torch.cuda.synchronize()
+    want = quantize.dn_quantize_plain(d, distance_threshold, difference_threshold)
+    assert torch.equal(got, want)
+    return want
+
+
+# a strip is 112 output columns (4 a lane, 16-byte loads when W % 4 == 0):
+# one and two strips and their vector width either side; rows either side of
+# the walk lengths (10 .. 120 rows a warp) and of the 11-row ring; W < 11,
+# H < 11; 479x641; B = 1; the main path's shape
+@pytest.mark.parametrize("B,H,W", [
+    (2, 37, 108), (2, 37, 111), (2, 37, 112), (2, 37, 113), (2, 37, 116), (1, 23, 223),
+    (1, 23, 224), (1, 23, 225), (1, 23, 228), (3, 19, 120), (1, 21, 124), (1, 20, 128),
+    (1, 10, 64), (1, 11, 64), (1, 12, 64), (2, 13, 9), (2, 9, 13), (1, 40, 10),
+    (1, 1, 1), (1, 12, 12), (1, 121, 40), (1, 119, 40), (2, 479, 641), (1, 480, 640),
+    (32, 480, 640)])
+def test_dn_quantize_kernel_shapes(dev, B, H, W):
+    want = _dn_equal(_depth(np.random.RandomState(B + H + W), B, H, W).to(dev))
+    if H > 16 and W > 40:
+        assert len(torch.unique(want)) >= 5
+
+
+def test_dn_quantize_kernel_zero_and_constant_frames(dev):
+    assert not _dn_equal(torch.zeros((2, 40, 130), dtype=torch.int32, device=dev)).any()
+    const = _dn_equal(torch.full((2, 40, 130), 1234, dtype=torch.int32, device=dev))
+    assert const[:, 10:-10, 10:-10].any()  # a flat wall has a normal
+
+
+@pytest.mark.parametrize("distance_threshold,difference_threshold",
+                         [(2000, 50), (1000, 8), (2000, 1), (1, 50), (2000, 100000)])
+def test_dn_quantize_kernel_at_its_thresholds(dev, distance_threshold, difference_threshold):
+    """Depths at and above the distance threshold, steps at the difference
+    threshold (the gate is a strict <)."""
+    rng = np.random.RandomState(3)
+    d = (distance_threshold - 3 + rng.randint(0, 6, (2, 45, 150))).astype(np.int32)
+    steps = difference_threshold * rng.randint(-1, 2, (2, 45, 150)) + rng.randint(-1, 2, (2, 45, 150))
+    d[:, :, 75:] = (900 + steps[:, :, 75:]).astype(np.int32)
+    _dn_equal(torch.as_tensor(d, device=dev), distance_threshold, difference_threshold)
+
+
+def test_dn_quantize_kernel_wrapping_equations(dev):
+    """Depths over the whole int32 range: differences, sums and products of
+    the normal equations wrap modulo 2^32, in the kernel as in the twin."""
+    rng = np.random.RandomState(4)
+    d = rng.randint(-2**31, 2**31 - 1, (2, 40, 130), dtype=np.int64).astype(np.int32)
+    _dn_equal(torch.as_tensor(d, device=dev), 2**31 - 1, 2**31 - 1)
+    big = (2**30 + rng.randint(-40, 41, (2, 40, 130))).astype(np.int32)
+    _dn_equal(torch.as_tensor(big, device=dev), 2**31 - 1, 50)
+
+
+def test_dn_quantize_kernel_other_dtypes_and_views(dev):
+    """int16 frames and a non-contiguous view go through the wrapper's
+    conversion; an unaligned int32 view takes the scalar loads."""
+    rng = np.random.RandomState(5)
+    d = _depth(rng, 2, 40, 132)
+    got = quantize.dn_quantize_batched(d.to(torch.int16).to(dev))
+    assert torch.equal(got, quantize.dn_quantize_plain(d.to(dev)))
+    wide = _depth(rng, 2, 40, 140).to(dev)
+    _dn_equal(wide[:, :, 3:135])
+    flat = torch.zeros(2 * 40 * 132 + 1, dtype=torch.int32, device=dev)
+    flat[1:] = d.to(dev).reshape(-1)
+    _dn_equal(flat[1:].view(2, 40, 132))  # contiguous, 4 bytes off 16-byte alignment
+
+
 def _response_equal(q, t):
     got = response.response_spread_batched(q, t)
     torch.cuda.synchronize()

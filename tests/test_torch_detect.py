@@ -6,9 +6,10 @@ reference's two modalities (``rgb=`` its gray view x3); its state goes to
 the port through io/convert.py as plain numpy. On two tools/scenes.py
 frames the cluster records must agree: class, template and match fields
 equal, translations within 1 mm, rotations within 0.5 deg. This file runs
-the promoted schedule (test_torch_detect_default.py the depth-only
-default one; the reference's compile dominates either). The port's own
-add_view must reproduce the reference's templates.
+the promoted schedule and the two-modality default one
+(test_torch_detect_default.py the depth-only default one; the reference's
+compile dominates either). The port's own add_view must reproduce the
+reference's templates.
 """
 
 import functools
@@ -124,6 +125,10 @@ def test_detect_fused_batch_equals_reference_promoted():
 
 def test_two_modality_detect_fused_batch_equals_reference():
     check_schedule("promoted", BOTH)
+
+
+def test_two_modality_detect_fused_batch_equals_reference_default():
+    check_schedule("default", BOTH)
 
 
 @pytest.mark.parametrize("modalities", [DEPTH_ONLY, BOTH])
