@@ -128,6 +128,10 @@ def coarse_sweep(d_planes, plane_idx, dr, dc, nfeat, out_h: int, out_w: int
     nT, F = plane_idx.shape
     if F > MAX_F:
         raise ValueError(f"coarse sweep: {F} features per template > {MAX_F}")
+    if max(Hp, Wp, out_h, out_w) >= 2 ** 24 \
+            or ((P + 2) * Hp + out_h + 1024) * Wp + out_w + 64 >= 2 ** 31:
+        raise ValueError(f"coarse sweep: a frame's D {P}x{Hp}x{Wp} swept over "
+                         f"{out_h}x{out_w} exceeds int32 offsets")
     out = torch.empty((B, nT, out_h, out_w), dtype=torch.int32, device=d_planes.device)
     lib = kernels.library()
     code = lib.odc_coarse_sweep(

@@ -166,16 +166,39 @@ def test_refine_kernel_equals_twin(dev):
     assert torch.equal(got, refine.refine_sweep_plain(D, plane, r0, c0, nfeat))
 
 
-@pytest.mark.parametrize("H,W", [(48, 64), (37, 90)])
-def test_fused_scene_kernel_equals_twin(dev, H, W):
+# a tile is 32 x 8 pixels and a block walks over 8 frames: one pixel; less
+# than a tile; one column / row past a tile; 480x29; 479x641; the main
+# path's frame; B of 1, 3, 9 (one past a frame group) and 32
+@pytest.mark.parametrize("B,H,W", [
+    (2, 48, 64), (2, 37, 90), (1, 1, 1), (3, 7, 9), (9, 9, 33), (1, 480, 29), (3, 479, 641),
+    (9, 16, 64), (1, 480, 640), (32, 480, 640)])
+def test_fused_scene_kernel_equals_twin(dev, B, H, W):
     K = np.array([[70.0, 0.0, W / 2 + 0.3], [0.0, 71.0, H / 2 - 0.4], [0.0, 0.0, 1.0]])
+    if H >= 479:  # the detect benchmark's camera
+        K = np.array([[572.4114, 0.0, 325.2611], [0.0, 573.57043, 242.04899], [0.0, 0.0, 1.0]])
     fs = FusedScene(H, W, K, device=dev)
-    d = _depth(np.random.RandomState(1), 2, H, W).to(dev)
+    d = _depth(np.random.RandomState(1), B, H, W)
+    d[B - 1, : H // 4] = -5  # negative depth is invalid too
+    d = d.to(dev)
     got = fs(d)
     torch.cuda.synchronize()
     want = fs.plain(d)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    if H > 10 and W > 10:
+        assert torch.isfinite(want[:, 3]).any() and torch.isnan(want[:, 3]).any()
+
+
+def test_fused_scene_kernel_all_invalid_and_flat_frames(dev):
+    fs = FusedScene(40, 70, np.array([[70.0, 0.0, 35.3], [0.0, 71.0, 19.6], [0.0, 0.0, 1.0]]),
+                    device=dev)
+    d = torch.zeros((3, 40, 70), dtype=torch.int32, device=dev)
+    d[1] = 1000
+    d[2, ::2] = 1000
+    got, want = fs(d), fs.plain(d)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert torch.isnan(got[0, :6]).all() and (got[1, 6, 5:-5, 5:-5] == 1).all()
 
 
 @pytest.mark.parametrize("B,H,W", [(3, 48, 64), (3, 37, 90), (1, 7, 9), (2, 479, 641),
@@ -197,17 +220,75 @@ def test_cg_quantize_kernel_equals_twin(dev, B, H, W):
         assert torch.equal(got, quantize.cg_quantize_plain(bgr, weak))
 
 
-def test_coarse_sweep_kernel_equals_twin(dev):
-    rng = np.random.RandomState(5)
-    B, P, Hp, Wp, nT, F = 2, 9, 13, 21, 5, 11
-    D = torch.as_tensor(rng.randint(0, 5, (B, P, Hp, Wp)).astype(np.int8), device=dev)
+def _coarse_case(rng, dev, B, P, Hp, Wp, nT, F, nfeat, dr_range, dc_range):
+    D = torch.as_tensor(rng.randint(-128, 128, (B, P, Hp, Wp)).astype(np.int8), device=dev)
     tab = [torch.as_tensor(rng.randint(lo, hi, (nT, F)), dtype=torch.int32, device=dev)
-           for lo, hi in ((-1, P + 1), (0, 6), (0, 6))]
-    nfeat = torch.as_tensor([F, 3, 0, 7, 1], dtype=torch.int32, device=dev)
-    for oh, ow in ((10, 17), (70, 50)):  # the second needs two output chunks
-        got = refine.coarse_sweep(D, *tab, nfeat, oh, ow)
-        torch.cuda.synchronize()
-        assert torch.equal(got, refine.coarse_sweep_plain(D, *tab, nfeat, oh, ow))
+           for lo, hi in ((-1, P + 1), dr_range, dc_range)]  # some planes outside 0..P-1
+    return D, *tab, torch.as_tensor(nfeat, dtype=torch.int32, device=dev)
+
+
+def _coarse_equal(args, oh, ow):
+    got = refine.coarse_sweep(*args, oh, ow)
+    torch.cuda.synchronize()
+    assert torch.equal(got, refine.coarse_sweep_plain(*args, oh, ow))
+    return got
+
+
+# int8 D over -128..127, negative dr / dc, planes outside 0..P-1, nfeat of
+# 0 and F; grids larger than the plane (70x50 over 13x21: several row
+# tiles, zero fill), wider than 32 lanes of 8 columns, one lane column;
+# plane and grid widths of every residue mod 4 (the rows' alignment then
+# changes from row to row); planes smaller than the careful sweep's reach
+@pytest.mark.parametrize("Hp,Wp,oh,ow", [
+    (13, 21, 10, 17), (13, 21, 70, 50), (30, 40, 30, 40), (31, 43, 29, 37), (11, 41, 10, 40),
+    (11, 42, 10, 39), (11, 22, 10, 19), (11, 23, 10, 21), (11, 20, 10, 24), (5, 290, 3, 300),
+    (40, 16, 33, 8), (1, 1, 1, 1), (2, 3, 4, 6)])
+def test_coarse_sweep_kernel_equals_twin(dev, Hp, Wp, oh, ow):
+    rng = np.random.RandomState(Hp * Wp + ow)
+    args = _coarse_case(rng, dev, 2, 9, Hp, Wp, 5, 11, [11, 3, 0, 7, 1], (-3, 7), (-5, 9))
+    got = _coarse_equal(args, oh, ow)
+    if Hp > 4:
+        assert (got < 0).any() and (got > 0).any()
+
+
+def test_coarse_sweep_kernel_unaligned_tensors(dev):
+    """D at every byte offset in its storage (the aligned words then start
+    before the tensor: its first and last planes take the careful sweep)."""
+    rng = np.random.RandomState(6)
+    D, plane, dr, dc, nfeat = _coarse_case(rng, dev, 2, 3, 6, 10, 4, 8, [8, 8, 8, 8],
+                                           (-2, 3), (-7, 8))
+    plane[0, :], plane[1, :] = 0, 2
+    dr[0, 0], dc[0, 0], dr[1, 0], dc[1, 0] = 0, -7, 5, 7
+    for off in range(4):
+        flat = torch.zeros(D.numel() + 4, dtype=torch.int8, device=dev)
+        flat[off:off + D.numel()] = D.reshape(-1)
+        _coarse_equal((flat[off:off + D.numel()].view(D.shape), plane, dr, dc, nfeat), 6, 10)
+
+
+def test_coarse_sweep_kernel_256_features_of_extreme_bytes(dev):
+    """F = MAX_F features of -128 and of 127: no carry between the packed
+    16-bit fields."""
+    F = refine.MAX_F
+    D = torch.full((2, 3, 4, 12), 127, dtype=torch.int8, device=dev)
+    D[:, 1] = -128
+    D[:, 2, ::2, 1::2] = -128
+    plane = torch.zeros((2, F), dtype=torch.int32, device=dev)
+    plane[1] = 1
+    plane[:, 200:] = 2
+    zeros = torch.zeros((2, F), dtype=torch.int32, device=dev)
+    nfeat = torch.tensor([F, F], dtype=torch.int32, device=dev)
+    got = _coarse_equal((D, plane, zeros, zeros, nfeat), 4, 12)
+    assert got.max() == 256 * 127 and got.min() == 256 * -128
+
+
+def test_coarse_sweep_kernel_main_path_shape(dev):
+    """D [32, 1024, 30, 40] with 122 templates of up to 62 features, bytes
+    over the whole int8 range; and an empty launch."""
+    rng = np.random.RandomState(7)
+    args = _coarse_case(rng, dev, 32, 1024, 30, 40, 122, 62, rng.randint(0, 63, 122),
+                        (0, 8), (0, 8))
+    _coarse_equal(args, 30, 40)
+    assert refine.coarse_sweep(*args, 0, 40).shape == (32, 122, 0, 40)
 
 
 def _refine_case(rng, dev, B, P, Hp, Wp, K, F, nfeat):

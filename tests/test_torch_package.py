@@ -37,10 +37,8 @@ def test_importing_the_pipeline_loads_no_jax():
     assert out.stdout.strip() == "clean"
 
 
-@pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix()
-                                        for p in PKG.rglob("*.py")))
-def test_no_module_imports_jax(path):
-    tree = ast.parse((PKG / path).read_text())
+def _assert_no_jax_import(file, path):
+    tree = ast.parse(file.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -51,6 +49,18 @@ def test_no_module_imports_jax(path):
         for n in names:
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "object_detector_6d_tpu"), (path, n)
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix()
+                                        for p in PKG.rglob("*.py")))
+def test_no_module_imports_jax(path):
+    _assert_no_jax_import(PKG / path, path)
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "kernel_ab.py", "batch_probe.py"])
+def test_no_card_script_imports_jax(path):
+    """The scripts that drive the port on the card, at the repo's root."""
+    _assert_no_jax_import(ROOT / path, path)
 
 
 def _meta(*shape, dtype):
