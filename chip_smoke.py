@@ -45,6 +45,30 @@ Phases (each raises on failure, so the script exits non-zero):
    K2, K3, K6 and K4 are launched by ``detect``'s B=1 match; objA within
    1 cm / 5 deg of the truth on those frames; their poses within 1 mm /
    0.5 deg of the same call with device="cpu"; ms per fallen-back frame
+6. host matcher: ``Detector.match`` through its host-orchestrated
+   matcher (match/sweep.py) on the card, on the two-modality detector's
+   frame 0 with ``fused=False`` and on the fallback workload's overflowing
+   frame with MAX_FUSED_CANDIDATES lowered to 8 on the instance and a
+   first capacity of 4, so that the ladder runs out. Gates: the list equals
+   ``device="cpu"``'s exactly (x, y, similarity, class, template); it
+   equals the fused match's at capacity 64, which does not overflow (the
+   similarity to 3 places, the fused program's being float32); K1 (two
+   modalities), K2, K3, K6 and K4 launched by it; ms per call
+7. multi: ``detect_fused_dispatch_multi`` with G=2 batches of B=32 (the
+   two-modality frames, then the same frames in reverse order) + its
+   finalize, and ``detect_fused_finalize_many`` on two dispatch handles,
+   each equal to one ``detect_fused_batch`` per batch: the same (class,
+   template, x, y) and poses within 0.001 mm; no fallback; ms per batch
+8. streaming: ``StreamingDetector`` on the reference's
+   tests/test_streaming.py tick (the snowman with both modalities,
+   threshold 65, 4 hypotheses, ICP 45 iterations / 3 levels, 4 cameras of
+   which one is empty): ``process`` and ``process_host`` give the empty
+   camera [] and every other camera its snowman within 12 mm;
+   ``process_host`` on the card within 1 mm / 0.5 deg of device="cpu";
+   ms per tick of each
+9. parity: parity_torch.py's base and occl sets (tools/parity_add.py, 64
+   scenes each) at the promoted schedule through ``detect_fused`` on the
+   card: ADD-0.1d no lower than the OpenCV oracle golden's; the table
 
 The two-modality workload is bench.py's: the snowman objA and its
 0.78-scale objB trained with the port's add_view (rgb = the gray view x3)
@@ -924,6 +948,248 @@ def fallback_phase(pd, scenes, K, gpu):
         f"({[len(p) for p in fb_results]} poses), max |dt| {worst_t * 1e3:.4f} mm, max "
         f"rotation {worst_r:.4f} deg; objA within {GT_T_M * 1e3:g} mm / {GT_DEG:g} deg of "
         f"the truth in {found['objA']}/{len(fallen)}")
+    return depths, fallen
+
+
+def match_fields(matches):
+    return [(m.x, m.y, m.similarity, m.class_id, m.template_id) for m in matches]
+
+
+def host_matcher_phase(dev, pd2, depths2, rgbs2, pd, fb_depths, fb_frame, gpu):
+    """``Detector.match`` through the host-orchestrated matcher on the card.
+    Returns {case: launches per call}."""
+    from object_detector_6d_tpu_torch.ops import quantize, refine, response
+
+    label = "host-matcher"
+    common = (quantize.dn_quantize_batched, response.response_spread_batched,
+              refine.coarse_sweep, refine.refine_sweep_batched)
+    cases = (
+        ("two-modality frame 0, fused=False", pd2.detector,
+         pd2._sources(rgbs2[0], depths2[0]), dict(fused=False), None,
+         (quantize.cg_quantize_batched,) + common),
+        (f"depth-only frame {fb_frame}, capacity 4 -> MAX_FUSED_CANDIDATES 8",
+         pd.detector, pd._sources(None, fb_depths[fb_frame]), dict(max_candidates=4), 8,
+         common),
+    )
+    per_call = {}
+    for case, det, src, kw, cap, counted in cases:
+        if cap is not None:
+            n_above = det._match_fused(src, THRESHOLD, None, 4, dev)
+            if not isinstance(n_above, int) or n_above <= cap:
+                raise AssertionError(f"[{label}] {case}: the ladder does not run out "
+                                     f"({n_above} coarse candidates)")
+            det.MAX_FUSED_CANDIDATES = cap
+        try:
+            for fn in counted:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            got = det.match(src, THRESHOLD, device=dev, **kw)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counted}
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                det.match(src, THRESHOLD, device=dev, **kw)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            cpu = det.match(src, THRESHOLD, device="cpu", **kw)
+        finally:
+            if cap is not None:
+                del det.MAX_FUSED_CANDIDATES
+        log(f"[{label}] {case}: launches per call {launches}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"[{label}] {case}: a kernel was not launched: {launches}")
+        if not got:
+            raise AssertionError(f"[{label}] {case}: no match at threshold {THRESHOLD}")
+        if match_fields(got) != match_fields(cpu):
+            raise AssertionError(f"[{label}] {case}: card {match_fields(got)} != cpu "
+                                 f"{match_fields(cpu)}")
+        fused = det._match_fused(src, THRESHOLD, None, 64, dev)
+        if isinstance(fused, int):
+            raise AssertionError(f"[{label}] {case}: the fused match overflows 64 ({fused})")
+
+        def rounded(ms):
+            return [(m.x, m.y, round(m.similarity, 3), m.class_id, m.template_id) for m in ms]
+
+        if rounded(fused) != rounded(got):
+            raise AssertionError(f"[{label}] {case}: fused {rounded(fused)} != host "
+                                 f"{rounded(got)}")
+        log(f"[{label}] {case}: {len(got)} matches, card == cpu exactly, == the fused "
+            f"match at capacity 64; time {statistics.median(times):.2f} ms per call "
+            f"(median of 3, after the counted call; {gpu}); runs "
+            f"{[round(t, 2) for t in times]}")
+        per_call[case] = launches
+    return per_call
+
+
+def multi_phase(pd2, depths2, rgbs2, K, gpu):
+    """G=2 batches through the multi and many entry points against one
+    ``detect_fused_batch`` per batch."""
+    label = "multi"
+    G = 2
+    depths_g = np.stack([depths2, depths2[::-1]])
+    rgbs_g = np.stack([rgbs2, rgbs2[::-1]])
+    before = pd2.counters.counts.get("overflow_fallback", 0)
+
+    def single():
+        return [pd2.detect_fused_batch(depths_g[g], K, rgbs_g[g]) for g in range(G)]
+
+    def multi():
+        return pd2.detect_fused_finalize_multi(
+            pd2.detect_fused_dispatch_multi(depths_g, K, rgbs_g))
+
+    def many():
+        return pd2.detect_fused_finalize_many(
+            [pd2.detect_fused_dispatch(depths_g[g], K, rgbs_g[g]) for g in range(G)])
+
+    want = single()
+    worst = 0.0
+    for name, fn in (("multi", multi), ("many", many)):
+        got = fn()
+        if len(got) != G:
+            raise AssertionError(f"[{label}] {name}: {len(got)} batches")
+        for g in range(G):
+            for b, (pg, pw) in enumerate(zip(got[g], want[g])):
+                kg = [(p.class_id, p.template_id, p.match_x, p.match_y) for p in pg]
+                kw = [(p.class_id, p.template_id, p.match_x, p.match_y) for p in pw]
+                if kg != kw:
+                    raise AssertionError(f"[{label}] {name} batch {g} frame {b}: {kg} != {kw}")
+                for a, c in zip(pg, pw):
+                    worst = max(worst, float(np.abs(a.pose[:3, 3] - c.pose[:3, 3]).max()),
+                                float(np.abs(a.pose[:3, :3] - c.pose[:3, :3]).max()))
+    if worst > 1e-6:
+        raise AssertionError(f"[{label}] poses differ from detect_fused_batch's by {worst}")
+    if pd2.counters.counts.get("overflow_fallback", 0) != before:
+        raise AssertionError(f"[{label}] a frame went through the fallback")
+    times = {}
+    for name, fn in (("detect_fused_batch x2", single), ("dispatch_multi + finalize_multi", multi),
+                     ("2 dispatches + finalize_many", many)):
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3 / G)
+        times[name] = runs
+    log(f"[{label}] G={G} batches of B={B}: multi and many == detect_fused_batch per batch "
+        f"(same class, template, x, y; poses within {worst * 1e3:.6f} mm / {worst:.2e} in "
+        f"the rotation's entries)")
+    for name, runs in times.items():
+        log(f"[{label}] time {name}: median {statistics.median(runs):.2f} ms per B={B} batch "
+            f"(3 runs; {gpu}); runs {[round(t, 2) for t in runs]}")
+
+
+def streaming_phase(dev, scenes, K, gpu):
+    """The reference's four-camera tick through StreamingDetector."""
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+    from object_detector_6d_tpu_torch.api.streaming import StreamingDetector
+    from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
+    from object_detector_6d_tpu_torch.ops import geometry, quantize, refine, response
+
+    label = "streaming"
+    params = DetectParams(match_threshold=65.0, max_hypotheses=4,
+                          icp=ICPParams(iterations=45, num_levels=3))
+    pd = PoseDetector(params=params, device=dev)
+    dep, gray, mask = scenes.snowman_scene()
+    if pd.add_view("obj", dep, K, mask.astype(np.uint8) * 255,
+                   rgb=np.repeat(gray[..., None], 3, 2)) != 0:
+        raise AssertionError(f"[{label}] add_view failed")
+    truths = (np.array([0.03, -0.01, -0.02]), np.array([-0.04, 0.02, 0.03]), None,
+              np.array([0.01, 0.03, -0.04]))
+    depths, rgbs = [], []
+    for t in truths:
+        if t is None:  # an empty camera
+            depths.append(np.full((480, 640), 1500, np.uint16))
+            rgbs.append(np.full((480, 640, 3), 128, np.uint8))
+        else:
+            d2, _, g2 = scenes.render_translated(dep, mask, K, t)
+            depths.append(d2)
+            rgbs.append(np.repeat(g2[..., None], 3, 2))
+    depths, rgbs = np.stack(depths), np.stack(rgbs)
+    stream = StreamingDetector(pd, n_cameras=4)
+    counted = (quantize.cg_quantize_batched, quantize.dn_quantize_batched,
+               response.response_spread_batched, refine.coarse_sweep,
+               refine.refine_sweep_batched, geometry.FusedScene)
+    out = {}
+    for entry in ("process", "process_host"):
+        fn = getattr(stream, entry)
+        for c in counted:
+            c.launches = 0
+        torch.cuda.synchronize()
+        res = fn(depths, K, rgbs)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counted}
+        if len(res) != 4 or res[2] != []:
+            raise AssertionError(f"[{label}] {entry}: {len(res)} cameras, empty camera "
+                                 f"{res[2] if len(res) > 2 else None}")
+        errs = []
+        for cam, t in enumerate(truths):
+            if t is None:
+                continue
+            if not res[cam]:
+                raise AssertionError(f"[{label}] {entry}: camera {cam} missed its detection")
+            errs.append(float(np.abs(res[cam][0].pose[:3, 3] - t).max()))
+        if max(errs) >= 0.012:
+            raise AssertionError(f"[{label}] {entry}: translation errors {errs} m")
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(depths, K, rgbs)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        log(f"[{label}] {entry}: empty camera [], others within "
+            f"{max(errs) * 1e3:.3f} mm of the truth; launches {launches}; time median "
+            f"{statistics.median(runs):.2f} ms per 4-camera tick (3 runs; {gpu}); runs "
+            f"{[round(t, 2) for t in runs]}")
+        out[entry] = res
+    pd_cpu = PoseDetector(detector=pd.detector, params=params, device="cpu")
+    pd_cpu.views = pd.views
+    cpu = StreamingDetector(pd_cpu, n_cameras=4).process_host(depths, K, rgbs)
+    worst_t = worst_r = 0.0
+    for cam, (pc, pg) in enumerate(zip(cpu, out["process_host"])):
+        kc = [(p.class_id, p.template_id, p.match_x, p.match_y) for p in pc]
+        kg = [(p.class_id, p.template_id, p.match_x, p.match_y) for p in pg]
+        if kc != kg:
+            raise AssertionError(f"[{label}] process_host camera {cam}: cpu {kc} vs card {kg}")
+        for a, c in zip(pc, pg):
+            worst_t = max(worst_t, float(np.abs(a.pose[:3, 3] - c.pose[:3, 3]).max()))
+            worst_r = max(worst_r, rot_deg(a.pose[:3, :3], c.pose[:3, :3]))
+    if worst_t > XDEV_T_M or worst_r > XDEV_DEG:
+        raise AssertionError(f"[{label}] process_host card vs cpu: {worst_t * 1e3:.3f} mm, "
+                             f"{worst_r:.3f} deg")
+    log(f"[{label}] process_host card vs cpu: same detections, max |dt| "
+        f"{worst_t * 1e3:.4f} mm, max rotation {worst_r:.4f} deg")
+
+
+def parity_phase(gpu):
+    """parity_torch.py's base and occl sets at the promoted schedule on the
+    card, against the oracle's goldens."""
+    import contextlib
+    import io
+
+    import parity_torch
+
+    label = "parity"
+    records = []
+    for config in ("base", "occl"):
+        t0 = time.perf_counter()
+        port = parity_torch.run_set(parity_torch.port_detector("promoted", "cuda"), config)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):  # the per-scene rows
+            rec = parity_torch.summarize(config, "promoted", port)
+        for line in buf.getvalue().splitlines():
+            if line.startswith(f"[{config}"):
+                log(f"[{label}] {line}")
+        log(f"[{label}] {config}: {time.perf_counter() - t0:.1f} s for {rec['frames']} "
+            f"scenes, training included ({gpu})")
+        records.append(rec)
+    parity_torch.table(records)
+    low = [r["config"] for r in records if r["port"]["add_01d"] < r["oracle"]["add_01d"]]
+    if low:
+        raise AssertionError(f"[{label}] ADD-0.1d below the oracle's on {low}")
 
 
 def run(dev, gpu: str) -> None:
@@ -968,7 +1234,20 @@ def run(dev, gpu: str) -> None:
                REF_OBJB_SPURIOUS, gpu)
 
     # phase 5: the overflow fallback, on the depth-only detector
-    fallback_phase(pd, scenes, K, gpu)
+    fb_depths, fallen = fallback_phase(pd, scenes, K, gpu)
+
+    log(f"phases 2-5: {time.time() - t0:.1f} s")
+
+    # phases 6-9: the host matcher, multi / many, streaming, parity
+    for name, phase in (
+            ("host matcher", lambda: host_matcher_phase(dev, pd2, depths2, rgbs2, pd,
+                                                        fb_depths, fallen[0], gpu)),
+            ("multi", lambda: multi_phase(pd2, depths2, rgbs2, K, gpu)),
+            ("streaming", lambda: streaming_phase(dev, scenes, K, gpu)),
+            ("parity", lambda: parity_phase(gpu))):
+        t1 = time.time()
+        phase()
+        log(f"phase {name}: {time.time() - t1:.1f} s")
 
     for r in recs:
         r["launches"] = launches[r["name"]]

@@ -5,6 +5,10 @@
     .add_view(class_id, depth, K, mask, rgb[, view_pose])   training
     .detect_fused_batch(depths [B, H, W], K, rgbs [B, H, W, 3])
                                                   -> [[Pose]] per frame
+    .detect_fused_dispatch / detect_fused_finalize          the same, split
+    .detect_fused_dispatch_multi(depths [G, B, H, W], K, rgbs [G, B, H, W, 3])
+    .detect_fused_finalize_multi(handle)          -> [[[Pose]]] per batch
+    .detect_fused_finalize_many([handle, ...])    one copy for many handles
     .detect(depth [H, W], K, rgb [H, W, 3])       -> [Pose], host-orchestrated
 
 The default Detector has the reference's two modalities (ColorGradient on
@@ -17,11 +21,11 @@ Detector.add_template, plus the view's masked cloud + FALS normals
 runs the fused program of api/detect_program.py on ``device`` and unpacks
 the device cluster-NMS records into Pose objects. A frame with more
 coarse candidates than ``max_hypotheses`` slots falls back, as in the
-reference, to ``detect``: Detector.match over the capacity ladder ->
-cloud + FALS normals -> window depth quantiles lift each match to up to
-three translation seeds -> nearest-neighbour point-to-plane ICP
-(refine/icp.py) per hypothesis -> best seed per match -> residual gate ->
-pose-cluster NMS on the host.
+reference, to ``detect``: Detector.match (the capacity ladder, then the
+host-orchestrated matcher) -> cloud + FALS normals -> window depth
+quantiles lift each match to up to three translation seeds ->
+nearest-neighbour point-to-plane ICP (refine/icp.py) per hypothesis ->
+best seed per match -> residual gate -> pose-cluster NMS on the host.
 
 ``device`` defaults to the card ("cuda"); ``device="cpu"`` asks for the
 plain twins on the host. Without a card, a detect call on the default
@@ -269,13 +273,56 @@ class PoseDetector:
         flat = prog(sources, bargs, views, threshold, *self._nms_device_args(bank, K))
         return (flat, B, K_cap, bank, *frames, K, class_ids, match_threshold)
 
+    def detect_fused_dispatch_multi(self, depths_g, K, rgbs_g=None,
+                                    class_ids: Optional[Sequence[str]] = None,
+                                    match_threshold: Optional[float] = None):
+        """Dispatch G frame batches (depths_g [G, B, H, W] u16, rgbs_g [G, B,
+        H, W, 3] u8 BGR) back to back: G runs of the cached program, queued
+        on the card before any result is read (the reference scans them
+        inside one execution). A throughput shape, not a low-latency one.
+        Finalize with :meth:`detect_fused_finalize_multi`."""
+        G, B = depths_g.shape[:2]
+        if self.detector.get_bank(class_ids) is None:
+            return ("empty", G, B)
+        return ("multi", [self.detect_fused_dispatch(
+            depths_g[g], K, None if rgbs_g is None else rgbs_g[g], class_ids,
+            match_threshold) for g in range(G)])
+
+    def detect_fused_finalize_multi(self, handle) -> List[List[List[Pose]]]:
+        """One device-to-host copy for the G batches, then the host
+        unpacking per batch."""
+        if handle[0] == "empty":
+            return [[[] for _ in range(handle[2])] for _ in range(handle[1])]
+        return self.detect_fused_finalize_many(handle[1])
+
     def detect_fused_finalize(self, handle) -> List[List[Pose]]:
         """Wait for a dispatch handle and unpack its cluster records."""
         if isinstance(handle[0], str):  # "empty": no templates registered
             return [[] for _ in range(handle[1])]
-        flat, B, K_cap, bank, depths, rgbs, K, class_ids, match_threshold = handle
-        slots, n_raw, n_pass = dp.unflatten_cluster_outputs(
-            flat.cpu().numpy().reshape(B, -1), K_cap)
+        return self._finalize_host(handle[0].cpu().numpy(), handle)
+
+    def detect_fused_finalize_many(self, handles) -> List[List[List[Pose]]]:
+        """Finalize several same-shape dispatch handles with one
+        ``torch.stack`` and one device-to-host copy; an "empty" handle
+        keeps its place. One result list per handle, in order."""
+        out: List = [None] * len(handles)
+        real = []
+        for i, h in enumerate(handles):
+            if isinstance(h[0], str):
+                out[i] = [[] for _ in range(h[1])]
+            else:
+                real.append((i, h))
+        if real:
+            stacked = torch.stack([h[0] for _, h in real]).cpu().numpy()
+            for (i, h), flat in zip(real, stacked):
+                out[i] = self._finalize_host(flat, h)
+        return out
+
+    def _finalize_host(self, flat: np.ndarray, handle) -> List[List[Pose]]:
+        """Unpack one transferred block of device cluster records; a frame
+        whose coarse candidates overflowed goes through ``detect``."""
+        _flat, B, K_cap, bank, depths, rgbs, K, class_ids, match_threshold = handle
+        slots, n_raw, n_pass = dp.unflatten_cluster_outputs(flat.reshape(B, -1), K_cap)
         results: List[List[Pose]] = []
         for b in range(B):
             if int(n_raw[b]) > K_cap:

@@ -12,18 +12,17 @@ import torch
 
 from object_detector_6d_tpu.api.detector import Detector as RefDetector
 from object_detector_6d_tpu.api.pipeline import PoseDetector as RefPoseDetector
+from object_detector_6d_tpu.api.streaming import StreamingDetector as RefStreamingDetector
 from object_detector_6d_tpu.refine.icp import ICP as RefICP
 from object_detector_6d_tpu_torch.api.detector import Detector
 from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+from object_detector_6d_tpu_torch.api.streaming import StreamingDetector
 from object_detector_6d_tpu_torch.refine.icp import ICP
 
 # reference parameters the port does not take yet, and why
 ABSENT = {
     ("PoseDetector.__init__", "mesh"):
         "sharding over a device mesh: ROADMAP queue 1 item 19",
-    ("Detector.match", "fused"):
-        "fused=False asks for the host-orchestrated matcher (_match_reference over "
-        "match/sweep.py): ROADMAP queue 1 item 11, what is left of it",
 }
 PORT_ONLY = {("PoseDetector.__init__", "device"), ("Detector.match", "device"),
              ("ICP.from_params", "device")}
@@ -31,6 +30,8 @@ PORT_ONLY = {("PoseDetector.__init__", "device"), ("Detector.match", "device"),
 CALLABLES = {
     "Detector.__init__": (RefDetector.__init__, Detector.__init__),
     "Detector.match": (RefDetector.match, Detector.match),
+    "Detector.class_ids": (RefDetector.class_ids, Detector.class_ids),
+    "Detector.get_templates": (RefDetector.get_templates, Detector.get_templates),
     "ICP.from_params": (RefICP.from_params, ICP.from_params),
     "ICP.register_model_to_scene": (RefICP.register_model_to_scene,
                                     ICP.register_model_to_scene),
@@ -42,6 +43,16 @@ CALLABLES = {
                                         PoseDetector.detect_fused_batch),
     "PoseDetector.detect_fused_dispatch": (RefPoseDetector.detect_fused_dispatch,
                                            PoseDetector.detect_fused_dispatch),
+    "PoseDetector.detect_fused_dispatch_multi": (RefPoseDetector.detect_fused_dispatch_multi,
+                                                 PoseDetector.detect_fused_dispatch_multi),
+    "PoseDetector.detect_fused_finalize_multi": (RefPoseDetector.detect_fused_finalize_multi,
+                                                 PoseDetector.detect_fused_finalize_multi),
+    "PoseDetector.detect_fused_finalize_many": (RefPoseDetector.detect_fused_finalize_many,
+                                                PoseDetector.detect_fused_finalize_many),
+    "StreamingDetector.__init__": (RefStreamingDetector.__init__, StreamingDetector.__init__),
+    "StreamingDetector.process": (RefStreamingDetector.process, StreamingDetector.process),
+    "StreamingDetector.process_host": (RefStreamingDetector.process_host,
+                                       StreamingDetector.process_host),
 }
 
 
@@ -120,5 +131,9 @@ def test_default_device_detect_raises_without_a_card():
         pd.detect(depth, K, rgb)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         pd.detector.match([rgb, depth], 80.0)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        pd.detector.match([rgb, depth], 80.0, fused=False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        StreamingDetector(pd).process_host(depth[None], K, rgb[None])
     with pytest.raises(RuntimeError, match="no CUDA card"):
         ICP().register_model_to_scene(np.zeros((8, 6), np.float32), np.zeros((8, 6), np.float32))

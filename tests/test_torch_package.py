@@ -26,8 +26,9 @@ ROOT = PKG.parent
 
 def test_importing_the_pipeline_loads_no_jax():
     code = ("import sys, object_detector_6d_tpu_torch.api.pipeline, "
+            "object_detector_6d_tpu_torch.api.streaming, "
             "object_detector_6d_tpu_torch.io.convert, "
-            "object_detector_6d_tpu_torch.data.synthetic\n"
+            "object_detector_6d_tpu_torch.data.synthetic, parity_torch\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'object_detector_6d_tpu' or m.startswith('object_detector_6d_tpu.')]\n"
             "assert not bad, bad\nprint('clean')")
@@ -57,9 +58,12 @@ def test_no_module_imports_jax(path):
     _assert_no_jax_import(PKG / path, path)
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "kernel_ab.py", "batch_probe.py"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "kernel_ab.py", "batch_probe.py",
+                                  "parity_torch.py"])
 def test_no_card_script_imports_jax(path):
-    """The scripts that drive the port on the card, at the repo's root."""
+    """The scripts that drive the port on the card, at the repo's root
+    (parity_torch.py reaches the JAX package only through
+    tools/parity_add.py's detector, with --reference)."""
     _assert_no_jax_import(ROOT / path, path)
 
 
