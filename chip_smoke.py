@@ -69,6 +69,26 @@ Phases (each raises on failure, so the script exits non-zero):
 9. parity: parity_torch.py's base and occl sets (tools/parity_add.py, 64
    scenes each) at the promoted schedule through ``detect_fused`` on the
    card: ADD-0.1d no lower than the OpenCV oracle golden's; the table
+10. offline: train, store, evaluate (the reference's tests/test_templates.py
+   and tests/test_eval_harness.py workloads).
+   a. train   ``train_from_model`` of the snowman model (the view's cloud +
+              FALS normals, centred) on its three views, on the card and
+              with device="cpu": every template equal exactly, the view
+              points within 1e-6 m and normals within the FALS bound (p99
+              <= 1.1 deg); K1 launched 2x and K2 1x per view; ``detect``
+              on the novel view within 12 mm mean model-point error; ms
+              per trained view on each device
+   b. store   write_classes -> read_classes through the native reader
+              (built into build/odc_native/) and the Python reader, equal
+              exactly to the trained templates; Detector.write -> read
+              keeps the configuration; write_ply -> load_ply and
+              load_ply_native of a seeded [500, 6] cloud within 1e-5
+              (binary and ASCII); ms per round trip
+   c. evaluate make_synthetic_bop_scene (3 frames, seed 0) -> BopScene ->
+              evaluate_scene with the snowman add_view detector: 3 of 3
+              found, ADD-0.1d 1.0, mean ADD < 0.01 m; K1-K6 launched;
+              frame 0's poses on the card within 1 mm / 0.5 deg of
+              device="cpu"; ms per evaluated frame and the harness's fps
 
 The two-modality workload is bench.py's: the snowman objA and its
 0.78-scale objB trained with the port's add_view (rgb = the gray view x3)
@@ -80,7 +100,7 @@ depth-only workload has 130 depth-only distractors instead (13 classes x
 10, 63 / 31 features). Frames and templates come from fixed numpy seeds.
 
 The line before the last is {"kernels": [...]}: every kernel with its
-launches on the two-modality main path, its largest difference from its
+launches on the two-modality main path plus those of phase 10, its largest difference from its
 twin, its time beside the twin's, its bound (the larger of its bytes over
 the card's memory rate and its operations over the peak rate for their
 type, from this run's inputs; bound_by says which) and the time of one
@@ -1192,6 +1212,253 @@ def parity_phase(gpu):
         raise AssertionError(f"[{label}] ADD-0.1d below the oracle's on {low}")
 
 
+def snowman_model(scenes, K):
+    """The reference test's object model (tests/test_templates.py): the
+    snowman view's cloud + FALS normals, centred; and the centre."""
+    from object_detector_6d_tpu_torch.geom.backproject import depth_to_3d
+    from object_detector_6d_tpu_torch.geom.normals import normals_fals
+
+    dep, _, mask = scenes.snowman_scene()
+    cloud_t = depth_to_3d(torch.as_tensor(dep.astype(np.int32)), K)
+    cloud, nrm = cloud_t.numpy(), normals_fals(cloud_t, K).numpy()
+    ok = mask & np.isfinite(cloud).all(-1) & np.isfinite(nrm).all(-1)
+    pts = cloud[ok]
+    center = pts.mean(0)
+    return np.concatenate([pts - center, nrm[ok]], -1).astype(np.float32), center
+
+
+def view_pose(t, w=(0.0, 0.0, 0.0)) -> np.ndarray:
+    from object_detector_6d_tpu_torch.core.se3 import SE3
+
+    T = SE3.exp(torch.tensor([*w, 0.0, 0.0, 0.0])).numpy().astype(np.float64)
+    T[:3, 3] = t
+    return T
+
+
+def p99_deg(a, b) -> float:
+    """99th percentile of the angle [deg] between unit normals [..., 3]."""
+    dots = np.clip((a * b).sum(-1), -1.0, 1.0)
+    return float(np.quantile(np.degrees(np.arccos(dots)), 0.99))
+
+
+def template_fields(tps):
+    return [[(t.width, t.height, t.pyramid_level, t.feature_array().tolist()) for t in tp]
+            for tp in tps]
+
+
+def offline_phase(dev, scenes, K, gpu):
+    """Phase 10: train from a model, store and load the templates, and
+    evaluate ADD on a synthetic BOP scene, on the card. Returns the
+    kernels' launches over the phase."""
+    import shutil
+
+    from object_detector_6d_tpu_torch.api.detector import Detector
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+    from object_detector_6d_tpu_torch.api.templates import render_view, train_from_model
+    from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
+    from object_detector_6d_tpu_torch.data.bop import BopScene, make_synthetic_bop_scene
+    from object_detector_6d_tpu_torch.eval.harness import evaluate_scene
+    from object_detector_6d_tpu_torch.io import native, yaml_store
+    from object_detector_6d_tpu_torch.io.ply import load_ply, write_ply
+    from object_detector_6d_tpu_torch.ops import geometry, quantize, refine, response
+
+    label = "offline"
+    counted = (quantize.cg_quantize_batched, quantize.dn_quantize_batched,
+               response.response_spread_batched, refine.coarse_sweep,
+               refine.refine_sweep_batched, geometry.FusedScene)
+    for fn in counted:
+        fn.launches = 0
+    total = {fn.__name__: 0 for fn in counted}
+
+    def take():
+        for fn in counted:
+            total[fn.__name__] += fn.launches
+            fn.launches = 0
+
+    work = ROOT / "build" / "smoke_offline"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    params = DetectParams(match_threshold=65.0, max_hypotheses=4,
+                          icp=ICPParams(iterations=60, num_levels=3))
+
+    # a. train
+    model, center = snowman_model(scenes, K)
+    views = [view_pose(center), view_pose(center, (0.10, 0, 0)), view_pose(center, (0, 0.10, 0))]
+    trained, ms_view = {}, {}
+    for d in (dev, "cpu"):
+        for run in range(2):  # the second run, warm, is timed
+            pd = PoseDetector(params=params, device=d)
+            take()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tids = train_from_model(pd, "obj", model, K, views)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3 / len(views)
+            if tids != [0, 1, 2]:
+                raise AssertionError(f"[{label}] train_from_model on {d}: template ids {tids}")
+            k1, k2 = quantize.cg_quantize_batched.launches, quantize.dn_quantize_batched.launches
+            want = (2 * len(views), len(views)) if d == dev else (0, 0)
+            if (k1, k2) != want:
+                raise AssertionError(f"[{label}] training on {d} launched K1 {k1}x and K2 "
+                                     f"{k2}x for {len(views)} views; expected {want}")
+            ms_view[str(d)] = dt
+        trained[str(d)] = pd
+    take()
+    card, cpu = trained[str(dev)], trained["cpu"]
+    if template_fields(card.detector.class_templates["obj"]) != template_fields(
+            cpu.detector.class_templates["obj"]):
+        raise AssertionError(f"[{label}] templates trained on the card differ from the CPU's")
+    worst_p = worst_n = 0.0
+    for key, v in card.views.items():
+        w = cpu.views[key]
+        if v.bbox != w.bbox or not np.array_equal(np.isnan(v.model_cloud), np.isnan(w.model_cloud)):
+            raise AssertionError(f"[{label}] view {key}: bbox or valid rows differ")
+        ok = ~np.isnan(w.model_cloud[:, 0])
+        worst_p = max(worst_p, float(np.abs(v.model_cloud[ok, :3] - w.model_cloud[ok, :3]).max()),
+                      float(np.abs(v.anchor_point - w.anchor_point).max()))
+        worst_n = max(worst_n, p99_deg(v.model_cloud[ok, 3:], w.model_cloud[ok, 3:]))
+    if worst_p > 1e-6 or worst_n > 1.1:
+        raise AssertionError(f"[{label}] view clouds card vs cpu: points {worst_p} m, "
+                             f"normals p99 {worst_n} deg")
+    # ms per view of add_view alone (the views rendered beforehand)
+    rendered = [render_view(model, K, T, bg_mm=1500) for T in views]
+    add_ms = {}
+    for d in (dev, "cpu"):
+        pd = PoseDetector(params=params, device=d)
+        runs = []
+        for dep, mask, gray in rendered * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pd.add_view("obj", dep, K, (mask * 255).astype(np.uint8),
+                        rgb=np.repeat(gray[..., None], 3, axis=2))
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        add_ms[str(d)] = statistics.median(runs[len(rendered):])
+    # the quantize part of a view alone: both pyramids (on the card K1 2x,
+    # K2 1x and the magnitude; on the CPU the twins), images back on the host
+    dep, mask, gray = rendered[0]
+    sources = [np.repeat(gray[..., None], 3, axis=2), dep]
+    quant_ms = {}
+    for d in (dev, "cpu"):
+        runs = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            Detector()._build_pyramids(sources, (mask * 255).astype(np.uint8), torch.device(d))
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        quant_ms[str(d)] = statistics.median(runs[1:])
+    take()
+    log(f"[{label}] train_from_model: 3 views, templates card == cpu exactly "
+        f"({card.detector.num_templates()} pyramids of "
+        f"{[len(t.features) for t in card.detector.get_templates('obj', 0)]} features), "
+        f"view points within {worst_p:.2e} m, normals p99 {worst_n:.4f} deg; K1 2x and K2 1x "
+        f"per view on the card")
+    log(f"[{label}] time train_from_model: {ms_view[str(dev)]:.2f} ms per view on the card, "
+        f"{ms_view['cpu']:.2f} ms on the cpu (render included, warm); add_view alone "
+        f"{add_ms[str(dev)]:.2f} / {add_ms['cpu']:.2f} ms per view (median of 3); its "
+        f"quantize part (both pyramids) {quant_ms[str(dev)]:.2f} / {quant_ms['cpu']:.2f} ms "
+        f"(median of 5 after 1; {gpu})")
+    T_gt = view_pose(center + np.array([0.05, -0.02, -0.03]), (0.05, 0.02, 0))
+    depth, _, gray = render_view(model, K, T_gt, bg_mm=1500)
+    poses = card.detect(depth, K, rgb=np.repeat(gray[..., None], 3, 2))
+    if not poses:
+        raise AssertionError(f"[{label}] no detection on the novel view")
+    best = poses[0].pose
+    pts = model[::7, :3]
+    err = float(np.linalg.norm(pts @ best[:3, :3].T + best[:3, 3]
+                               - (pts @ T_gt[:3, :3].T + T_gt[:3, 3]), axis=-1).mean())
+    if err >= 0.012:
+        raise AssertionError(f"[{label}] novel view: mean model-point error {err:.4f} m")
+    log(f"[{label}] detect on the novel view: mean model-point error {err * 1e3:.3f} mm")
+    take()
+
+    # b. store
+    if native.get_lib() is None:
+        raise AssertionError(f"[{label}] the native library did not build: "
+                             f"{native.build_info.get('error')}")
+    so = pathlib.Path(native.build_info["path"])
+    if so.parent.parent != ROOT / "build" / "odc_native":
+        raise AssertionError(f"[{label}] native library at {so}, not under build/odc_native")
+    log(f"[{label}] native library: {so} ({native.build_info['seconds']:.2f} s)")
+    fmt = str(work / "templates_%s.yml.gz")
+    want = template_fields(card.detector.class_templates["obj"])
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        card.detector.write_classes(fmt)
+        back = Detector()
+        back.read_classes(["obj"], fmt)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    path = fmt % "obj"
+    nat = native.read_class_native(path)
+    py = yaml_store.read_class(path)
+    if nat is None or template_fields(nat[3]) != want or template_fields(py[3]) != want \
+            or template_fields(back.class_templates["obj"]) != want:
+        raise AssertionError(f"[{label}] the stored templates differ from the trained ones")
+    card.detector.write(str(work / "detector.yml"))
+    again = Detector.read(str(work / "detector.yml"))
+    det = card.detector
+    if (again.modality_names, again.t_at_level, again.cg_params, again.dn_params) != (
+            det.modality_names, det.t_at_level, det.cg_params, det.dn_params):
+        raise AssertionError(f"[{label}] Detector.write -> read changed the configuration")
+    cloud = np.random.RandomState(0).uniform(-1, 1, (500, 6)).astype(np.float32)
+    for binary in (True, False):
+        p = str(work / f"cloud_{binary}.ply")
+        write_ply(p, cloud, binary=binary)
+        for name, got in (("load_ply", load_ply(p)), ("load_ply_native", native.load_ply_native(p))):
+            if got is None or got.shape != cloud.shape or np.abs(got - cloud).max() > 1e-5:
+                raise AssertionError(f"[{label}] {name} of a {'binary' if binary else 'ASCII'} "
+                                     "PLY differs from the cloud written")
+    log(f"[{label}] store: write_classes -> read_classes (native and Python readers) equal "
+        f"to the trained templates; Detector.write -> read keeps the configuration; PLY "
+        f"binary and ASCII within 1e-5; time {statistics.median(runs):.2f} ms per round "
+        f"trip (median of 3; runs {[round(t, 2) for t in runs]})")
+
+    # c. evaluate
+    scene_dir = str(work / "bop_scene")
+    make_synthetic_bop_scene(scene_dir, n_frames=3, obj_id=1, seed=0)
+    scene = BopScene(scene_dir)
+    pd = PoseDetector(params=params, device=dev)
+    dep, gray, mask = scenes.snowman_scene()
+    if pd.add_view("obj1", dep, K, mask.astype(np.uint8) * 255,
+                   rgb=np.repeat(gray[..., None], 3, 2)) != 0:
+        raise AssertionError(f"[{label}] add_view failed")
+    model_pts = pd.views[("obj1", 0)].model_cloud[:, :3]
+    take()
+    res = evaluate_scene(pd, scene, {1: "obj1"}, {1: model_pts})
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"[{label}] evaluate_scene launched {launches}")
+    if (res.n_gt, res.n_detected, res.add_accuracy) != (3, 3, 1.0) or not res.mean_add < 0.01:
+        raise AssertionError(f"[{label}] evaluate_scene: {res}")
+    timed = [evaluate_scene(pd, scene, {1: "obj1"}, {1: model_pts}) for _ in range(2)]
+    take()
+    frame = scene.frame(0)
+    pd_cpu = PoseDetector(detector=pd.detector, params=params, device="cpu")
+    pd_cpu.views = pd.views
+    got = pd.detect_fused(frame.depth_u16, frame.K, rgb=frame.rgb)
+    want = pd_cpu.detect_fused(frame.depth_u16, frame.K, rgb=frame.rgb)
+    if [p.class_id for p in got] != [p.class_id for p in want] or not got:
+        raise AssertionError(f"[{label}] frame 0: card {[p.class_id for p in got]} vs cpu "
+                             f"{[p.class_id for p in want]}")
+    worst_t = max(float(np.abs(a.pose[:3, 3] - c.pose[:3, 3]).max()) for a, c in zip(got, want))
+    worst_r = max(rot_deg(a.pose[:3, :3], c.pose[:3, :3]) for a, c in zip(got, want))
+    if worst_t > XDEV_T_M or worst_r > XDEV_DEG:
+        raise AssertionError(f"[{label}] frame 0 card vs cpu: {worst_t * 1e3:.3f} mm, "
+                             f"{worst_r:.3f} deg")
+    take()
+    log(f"[{label}] evaluate_scene on 3 synthetic BOP frames: n_gt {res.n_gt}, detected "
+        f"{res.n_detected}, ADD-0.1d {res.add_accuracy}, mean ADD {res.mean_add * 1e3:.4f} mm; "
+        f"launches {launches}; frame 0 card vs cpu {worst_t * 1e3:.4f} mm, {worst_r:.4f} deg")
+    log(f"[{label}] time evaluate_scene: {1e3 / timed[-1].fps:.2f} ms per evaluated frame, "
+        f"fps {timed[-1].fps:.3f} (second of two warm runs; first {timed[0].fps:.3f} fps; "
+        f"PNG read and ADD included; {gpu})")
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def run(dev, gpu: str) -> None:
     from object_detector_6d_tpu_torch.api.detector import Detector
     from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
@@ -1249,8 +1516,13 @@ def run(dev, gpu: str) -> None:
         phase()
         log(f"phase {name}: {time.time() - t1:.1f} s")
 
+    # phase 10: train, store, evaluate
+    t1 = time.time()
+    offline = offline_phase(dev, scenes, K, gpu)
+    log(f"phase offline: {time.time() - t1:.1f} s; launches {offline}")
+
     for r in recs:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = launches[r["name"]] + offline[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(gpu)

@@ -40,8 +40,54 @@ either one alone:
                                 .process_host: per-camera match, one geometry
                                 pass, median lift, NN ICP, per-camera NMS
 
+Offline, before and after detection (on the detector's device as well):
+
+    train_from_model(pose_detector, class_id, model6, K, view_poses)
+                                render each view (api/templates.py) and
+                                add_view it: K1 / K2 quantize every view
+    Detector.write_classes / read_classes / write / Detector.read
+                                the oracle's templates_%s.yml.gz store
+                                (io/yaml_store.py; native reader io/native.py)
+    evaluate_scene(pose_detector, BopScene(dir), obj_to_class, model_points)
+                                ADD(-S)-0.1d over a BOP-layout scene
+                                (eval/, data/bop.py, io/png.py, io/ply.py)
+
 The package imports ``torch`` and numpy, never ``jax`` nor the
-reference package. What is still to port is listed in ROADMAP.md.
+reference package. The names below, the reference's public surface and
+this list's entry points, load their modules at first use. What is still
+to port is listed in ROADMAP.md.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_EXPORTS = {
+    "Detector": "api.detector",
+    "Match": "api.detector",
+    "PoseDetector": "api.pipeline",
+    "ICP": "refine.icp",
+    "Pose": "refine.pose",
+    "PoseCluster": "refine.pose",
+    "cluster_poses": "refine.pose",
+    "ColorGradientParams": "core.config",
+    "DepthNormalParams": "core.config",
+    "DetectorParams": "core.config",
+    "ICPParams": "core.config",
+    "Intrinsics": "core.intrinsics",
+    "SE3": "core.se3",
+    "render_view": "api.templates",
+    "train_from_model": "api.templates",
+    "BopScene": "data.bop",
+    "make_synthetic_bop_scene": "data.bop",
+    "evaluate_scene": "eval.harness",
+    "EvalResult": "eval.harness",
+}
+
+__all__ = ["__version__", *_EXPORTS]
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)

@@ -2,8 +2,11 @@
 object_detector_6d_tpu/api/detector.py).
 
 ``add_template`` / ``add_synthetic_template`` build per-class template
-pyramids on the host; ``get_bank`` packs every class into the global bank
-the fused program sweeps. ``match`` returns the sorted, de-duplicated
+pyramids (the images quantized on the given device by K1 / K2, the
+features extracted on the host); ``write_classes`` / ``read_classes`` /
+``write`` / ``read`` keep them and the configuration in the oracle's
+store formats (io/yaml_store.py, io/native.py); ``get_bank`` packs every
+class into the global bank the fused program sweeps. ``match`` returns the sorted, de-duplicated
 ``Match`` list of one frame (linemod.cpp matchClass semantics: anchor
 offset T/2 + (T%2-1), candidate x2+1 upsampling with an 8T border clamp,
 score = 100 * raw / (4 * num_features), strict > at the coarse level, >=
@@ -33,6 +36,7 @@ import torch
 
 from object_detector_6d_tpu_torch.core.config import ColorGradientParams, DepthNormalParams
 from object_detector_6d_tpu_torch.core.device import checked_device
+from object_detector_6d_tpu_torch.io import native, yaml_store
 from object_detector_6d_tpu_torch.match import program as mp
 from object_detector_6d_tpu_torch.match import sweep
 from object_detector_6d_tpu_torch.ops.response import response_spread_batched
@@ -111,11 +115,13 @@ class Detector:
         return self.class_templates[class_id][template_id]
 
     def add_template(
-        self, sources: Sequence[np.ndarray], class_id: str, object_mask: np.ndarray
+        self, sources: Sequence[np.ndarray], class_id: str, object_mask: np.ndarray,
+        device="cuda",
     ) -> Tuple[int, Optional[Tuple[int, int, int, int]]]:
         """Returns (template_id, bbox) or (-1, None) on failure; ``sources``
-        holds one image per modality (BGR u8 or depth u16)."""
-        pyrs = self._build_pyramids(sources, object_mask)
+        holds one image per modality (BGR u8 or depth u16). The images are
+        quantized on ``device`` (K1, K2; their twins with "cpu")."""
+        pyrs = self._build_pyramids(sources, object_mask, checked_device(device))
         tp: List[Template] = []
         for lvl in range(self.pyramid_levels):
             for p in pyrs:
@@ -126,15 +132,15 @@ class Detector:
         bbox = crop_templates(tp)
         return self._store(tp, class_id), bbox
 
-    def _build_pyramids(self, sources, mask=None):
+    def _build_pyramids(self, sources, mask, device):
         pyrs = []
         for name, src in zip(self.modality_names, sources):
             if name == "ColorGradient":
                 pyrs.append(ColorGradientPyramid(src, self.cg_params,
-                                                 self.pyramid_levels, mask))
+                                                 self.pyramid_levels, mask, device))
             else:
                 pyrs.append(DepthNormalPyramid(src, self.dn_params,
-                                               self.pyramid_levels, mask))
+                                               self.pyramid_levels, mask, device))
         return pyrs
 
     def add_synthetic_template(self, templates: Sequence[Template],
@@ -151,6 +157,51 @@ class Detector:
         self._kernel_cache = {k: v for k, v in self._kernel_cache.items()
                               if k[0] != class_id}
         return len(lst) - 1
+
+    # ------------------------------------------------------------------
+    # persistence (linemod.hpp:391-393; oracle-compatible yml.gz)
+    # ------------------------------------------------------------------
+
+    def write_classes(self, path_format: str = "templates_%s.yml.gz",
+                      class_ids: Optional[Sequence[str]] = None) -> None:
+        for cid in class_ids or self.class_ids():
+            yaml_store.write_class(path_format % cid, cid, self.modality_names,
+                                   self.pyramid_levels, self.class_templates.get(cid, []))
+
+    def read_classes(self, class_ids: Sequence[str],
+                     path_format: str = "templates_%s.yml.gz") -> None:
+        """Each class from its store: ``.npz`` (yaml_store.load_npz), else
+        the yml(.gz) through the native reader, or the Python reader where
+        the native library cannot be built."""
+        for cid in class_ids:
+            path = path_format % cid
+            if path.endswith(".npz"):
+                result = yaml_store.load_npz(path)
+            else:
+                result = native.read_class_native(path)
+                if result is None:  # no toolchain: pure-Python fallback
+                    result = yaml_store.read_class(path)
+            read_cid, mods, levels, tps = result
+            if list(mods) != list(self.modality_names) or levels != self.pyramid_levels:
+                raise ValueError(
+                    f"store {path} was built for modalities={mods}, "
+                    f"levels={levels}; detector has {self.modality_names}, "
+                    f"{self.pyramid_levels}"
+                )
+            for tp in tps:
+                self._store(tp, read_cid)
+
+    def write(self, path: str) -> None:
+        """Detector parameter document (oracle Detector::write format)."""
+        with open(path, "w") as f:
+            f.write(yaml_store.emit_yaml(yaml_store.detector_doc(self)))
+
+    @classmethod
+    def read(cls, path: str) -> "Detector":
+        with open(path) as f:
+            doc = yaml_store.parse_yaml(f.read())
+        names, t_at_level, cg, dn = yaml_store.parse_detector_doc(doc)
+        return cls(names, t_at_level, cg, dn)
 
     def get_bank(self, class_ids: Optional[Sequence[str]] = None):
         """Packed global template bank (cached; invalidated by _store).

@@ -15,9 +15,11 @@ The default Detector has the reference's two modalities (ColorGradient on
 the u8 BGR frames, DepthNormal on the u16 depth); a detector with
 ColorGradient needs ``rgb`` / ``rgbs`` and raises ValueError without
 them, a depth-only one (``Detector(modalities=("DepthNormal",))``) takes
-none. Training (``add_view``) runs on the host: LINEMOD templates through
-Detector.add_template, plus the view's masked cloud + FALS normals
-(sampled to ``model_points``) as the ICP model. ``detect_fused_batch``
+none. Training (``add_view``) runs on ``device``: LINEMOD templates through
+Detector.add_template (K1 / K2 quantize the view; features are picked on
+the host), plus the view's masked cloud + FALS normals (sampled to
+``model_points``) as the ICP model; only the finished view record comes
+back to numpy. ``detect_fused_batch``
 runs the fused program of api/detect_program.py on ``device`` and unpacks
 the device cluster-NMS records into Pose objects. A frame with more
 coarse candidates than ``max_hypotheses`` slots falls back, as in the
@@ -48,7 +50,13 @@ from object_detector_6d_tpu_torch.core.intrinsics import Intrinsics
 from object_detector_6d_tpu_torch.geom.backproject import depth_to_3d
 from object_detector_6d_tpu_torch.geom.normals import normals_fals
 from object_detector_6d_tpu_torch.match import program as mp
-from object_detector_6d_tpu_torch.refine.icp import ICP, nanquantile, refine_one, split_scene
+from object_detector_6d_tpu_torch.refine.icp import (
+    ICP,
+    _nanmedian,
+    nanquantile,
+    refine_one,
+    split_scene,
+)
 from object_detector_6d_tpu_torch.refine.pose import Pose, cluster_poses
 from object_detector_6d_tpu_torch.utils.metrics import PipelineCounters, validate_frame
 
@@ -131,35 +139,35 @@ class PoseDetector:
         rgb: Optional[np.ndarray] = None,
         view_pose: Optional[np.ndarray] = None,
     ) -> int:
-        """Register one training view; returns the template id or -1."""
+        """Register one training view on this detector's device; returns
+        the template id or -1."""
+        dev = checked_device(self.device)
         depth_u16 = np.asarray(depth_u16)
         sources = self._sources(rgb, depth_u16)
-        tid, bbox = self.detector.add_template(sources, class_id, object_mask)
+        tid, bbox = self.detector.add_template(sources, class_id, object_mask, dev)
         if tid < 0:
             return -1
-        d = torch.as_tensor(depth_u16.astype(np.int32))
-        cloud_t = depth_to_3d(d, K)
-        cloud = cloud_t.numpy()
-        normals = normals_fals(cloud_t, K).numpy()
-        mask = ((np.asarray(object_mask) > 0) & np.isfinite(cloud).all(-1)
-                & np.isfinite(normals).all(-1))
-        ys, xs = np.nonzero(mask)
+        cloud = depth_to_3d(torch.as_tensor(depth_u16.astype(np.int32), device=dev), K)
+        normals = normals_fals(cloud, K)
+        mask = (torch.as_tensor(np.asarray(object_mask) > 0, device=dev)
+                & torch.isfinite(cloud).all(-1) & torch.isfinite(normals).all(-1))
+        ys, xs = torch.nonzero(mask, as_tuple=True)
         if len(ys) == 0:
             return -1
-        sel = np.linspace(0, len(ys) - 1, min(self.model_points, len(ys))).astype(int)
-        pts = cloud[ys[sel], xs[sel]]
-        nrm = normals[ys[sel], xs[sel]]
-        model = np.concatenate([pts, nrm], -1).astype(np.float32)
+        sel = torch.as_tensor(np.linspace(0, len(ys) - 1, min(self.model_points, len(ys)))
+                              .astype(int), device=dev)
+        model = torch.cat([cloud[ys[sel], xs[sel]], normals[ys[sel], xs[sel]]], -1)
         # pad with NaN rows (masked out of the ICP sample)
         if len(model) < self.model_points:
-            pad = np.full((self.model_points - len(model), 6), np.nan, np.float32)
-            model = np.concatenate([model, pad], 0)
+            model = torch.cat([model, torch.full((self.model_points - len(model), 6),
+                                                 float("nan"), device=dev)])
         bx, by, bw, bh = bbox
-        z = float(np.nanmedian(pts[:, 2]))
-        intr = Intrinsics.from_matrix(np.asarray(K))
-        anchor = intr.reproject(bx + bw / 2.0, by + bh / 2.0, z).numpy()
+        # np.nanmedian's rule (the middle pair averaged), in float32
+        z = float(_nanmedian(model[:len(sel), 2]))
+        intr = Intrinsics.from_matrix(np.asarray(K), device=dev)
+        anchor = intr.reproject(bx + bw / 2.0, by + bh / 2.0, z)
         self.views[(class_id, tid)] = _ViewRecord(
-            model, bbox, anchor.astype(np.float32),
+            model.cpu().numpy(), bbox, anchor.cpu().numpy(),
             None if view_pose is None else np.asarray(view_pose, np.float32),
         )
         return tid
@@ -260,6 +268,9 @@ class PoseDetector:
             validate_frame(depths[0], K, None if rgbs is None else np.asarray(rgbs)[0])
             d = torch.as_tensor(depths.astype(np.int32)).to(self.device)
         if rgbs is not None and "ColorGradient" in self.detector.modality_names:
+            if not isinstance(rgbs, torch.Tensor):
+                # a BGR view of RGB frames ([..., ::-1]) has a negative stride
+                rgbs = np.ascontiguousarray(rgbs, np.uint8)
             rgbs = torch.as_tensor(rgbs, dtype=torch.uint8).to(self.device)
         sources = self._sources(rgbs, d)
         B, H, W = d.shape

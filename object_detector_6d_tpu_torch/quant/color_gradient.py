@@ -16,8 +16,9 @@ Per pixel of a BGR u8 image:
 Every float step is one separately rounded float32 operation in the
 reference's order (no fused multiply-add), and the division is a true
 division of two tensors. This is the plain version the K1 kernel
-(ops/quantize.py, csrc/cg_quantize.cu) is held against, and the
-quantizer the training side (quant/pyramid.py) uses.
+(ops/quantize.py, csrc/cg_quantize.cu) is held against. The training
+side (quant/pyramid.py) takes the one-hot image from K1's wrapper (this
+twin for a CPU image) and the magnitude from ``selected_magnitude``.
 """
 
 from __future__ import annotations
@@ -95,14 +96,12 @@ def _box3_sum(x: torch.Tensor) -> torch.Tensor:
     return p[..., 0:W] + p[..., 1:W + 1] + p[..., 2:W + 2]
 
 
-def quantized_orientations(bgr: torch.Tensor, weak_threshold: float = 10.0
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[..., H, W, 3] u8 -> (one-hot u8 [..., H, W], squared magnitude of
-    the selected channel f32 [..., H, W]); the magnitude feeds template
-    extraction's strong threshold."""
+def _selected_gradient(bgr: torch.Tensor):
+    """Steps 1-3: the Sobel dx, dy (int32) of the channel with the largest
+    squared magnitude, and that magnitude (f32, exact: < 2^24)."""
     img = torch.movedim(bgr.to(torch.int32), -1, -3)  # [..., 3, H, W]
     dx, dy = _sobel(_gauss7(img))
-    mag = (dx * dx + dy * dy).to(torch.float32)  # exact: < 2^24
+    mag = (dx * dx + dy * dy).to(torch.float32)
     m0, m1, m2 = mag.unbind(-3)
     sel1 = (m1 > m0) & (m1 >= m2)
     sel2 = (m2 > m0) & (m2 > m1)
@@ -112,8 +111,25 @@ def quantized_orientations(bgr: torch.Tensor, weak_threshold: float = 10.0
         return torch.where(sel0, v[..., 0, :, :],
                            torch.where(sel1, v[..., 1, :, :], v[..., 2, :, :]))
 
-    smag = pick(mag)
-    ang = fast_atan2_deg(pick(dy).to(torch.float32), pick(dx).to(torch.float32))
+    return pick(dx), pick(dy), pick(mag)
+
+
+def selected_magnitude(bgr: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, 3] u8 -> the squared gradient magnitude of the selected
+    channel, f32 [..., H, W] (the oracle's ``magnitude`` image), on the
+    image's device. Integer arithmetic below 2^24, so it is exact on any
+    device; no TPU kernel computes it (the reference's plain XLA does), so
+    on the card it runs beside K1 in plain PyTorch."""
+    return _selected_gradient(bgr)[2]
+
+
+def quantized_orientations(bgr: torch.Tensor, weak_threshold: float = 10.0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., H, W, 3] u8 -> (one-hot u8 [..., H, W], squared magnitude of
+    the selected channel f32 [..., H, W]); the magnitude feeds template
+    extraction's strong threshold."""
+    sdx, sdy, smag = _selected_gradient(bgr)
+    ang = fast_atan2_deg(sdy.to(torch.float32), sdx.to(torch.float32))
     q16 = torch.clamp(torch.round(ang * _f32(BIN_SCALE, ang)), 0, 255).to(torch.int32)
     q8 = q16 & 7
     H, W = q8.shape[-2:]

@@ -8,8 +8,11 @@ object_detector_6d_tpu/quant/pyramid.py), for the two LINEMOD modalities:
   level-l image ([::2, ::2], the oracle's INTER_NEAREST halving).
 
 Masks halve with [::2, ::2]; num_features (and DepthNormal's
-extract_threshold) halve per level. Training runs on the host: the plain
-quantizers on CPU tensors, numpy extraction. ``pyr_down_u8`` is also the
+extract_threshold) halve per level. The quantized images are computed on
+``device`` (default the card) through the kernel wrappers of
+ops/quantize.py: K1 at each ColorGradient level, K2 once; with
+``device="cpu"`` the wrappers run their plain twins. The images come back
+to the host for the numpy feature extraction. ``pyr_down_u8`` is also the
 match program's level-1 step for the colour frames, on their device.
 """
 
@@ -21,8 +24,9 @@ import numpy as np
 import torch
 
 from object_detector_6d_tpu_torch.core.config import ColorGradientParams, DepthNormalParams
-from object_detector_6d_tpu_torch.quant.color_gradient import quantized_orientations
-from object_detector_6d_tpu_torch.quant.depth_normal import quantized_normals
+from object_detector_6d_tpu_torch.core.device import checked_device
+from object_detector_6d_tpu_torch.ops.quantize import cg_quantize_batched, dn_quantize_batched
+from object_detector_6d_tpu_torch.quant.color_gradient import selected_magnitude
 from object_detector_6d_tpu_torch.quant.features import (
     Template,
     extract_color_gradient,
@@ -64,18 +68,20 @@ class ColorGradientPyramid:
         params: ColorGradientParams | None = None,
         levels: int = 2,
         mask: Optional[np.ndarray] = None,
+        device="cuda",
     ):
         self.params = params or ColorGradientParams()
         self.levels = levels
         self._quantized: List[np.ndarray] = []
         self._magnitude: List[np.ndarray] = []
         self._masks: List[Optional[np.ndarray]] = []
-        src = torch.as_tensor(np.ascontiguousarray(bgr, np.uint8))
+        src = torch.as_tensor(np.ascontiguousarray(bgr, np.uint8),
+                              device=checked_device(device))
         m = None if mask is None else np.asarray(mask) > 0
         for lvl in range(levels):
-            q, mag = quantized_orientations(src, self.params.weak_threshold)
-            self._quantized.append(q.numpy())
-            self._magnitude.append(mag.numpy())
+            q = cg_quantize_batched(src[None], self.params.weak_threshold)[0]
+            self._quantized.append(q.cpu().numpy())
+            self._magnitude.append(selected_magnitude(src).cpu().numpy())
             self._masks.append(m)
             if lvl + 1 < levels:
                 src = pyr_down_u8(src)
@@ -101,15 +107,14 @@ class DepthNormalPyramid:
         params: DepthNormalParams | None = None,
         levels: int = 2,
         mask: Optional[np.ndarray] = None,
+        device="cuda",
     ):
         self.params = params or DepthNormalParams()
         self.levels = levels
-        d = torch.as_tensor(np.asarray(depth_u16).astype(np.int32))
-        q = quantized_normals(
-            d,
-            distance_threshold=self.params.distance_threshold,
-            difference_threshold=self.params.difference_threshold,
-        ).numpy()
+        d = torch.as_tensor(np.asarray(depth_u16).astype(np.int32),
+                            device=checked_device(device))
+        q = dn_quantize_batched(d[None], self.params.distance_threshold,
+                                self.params.difference_threshold)[0].cpu().numpy()
         m = None if mask is None else np.asarray(mask) > 0
         self._quantized = [q]
         self._masks: List[Optional[np.ndarray]] = [m]

@@ -105,7 +105,7 @@ def test_pyramid_equals_pyr_probe_golden(golden):
     g = golden("pyr_probe")
     np.testing.assert_array_equal(pyr_down_u8(torch.as_tensor(g["cg_in"])).numpy(),
                                   g["cg_down_oracle"])
-    pyr = ColorGradientPyramid(g["cg_in"], levels=2)
+    pyr = ColorGradientPyramid(g["cg_in"], levels=2, device="cpu")
     np.testing.assert_array_equal(pyr.quantize(0), g["cg_q0"])
     np.testing.assert_array_equal(pyr.quantize(1), g["cg_q1"])
 
@@ -115,7 +115,8 @@ def test_pyramid_extraction_equals_reference():
     _, gray, mask = scenes.snowman_scene()
     bgr = np.repeat(gray[..., None], 3, axis=2)
     m = mask.astype(np.uint8) * 255
-    ours, ref = ColorGradientPyramid(bgr, levels=2, mask=m), RefCGPyramid(bgr, levels=2, mask=m)
+    ours = ColorGradientPyramid(bgr, levels=2, mask=m, device="cpu")
+    ref = RefCGPyramid(bgr, levels=2, mask=m)
     for lvl in range(2):
         a, b = ours.extract_template(lvl), ref.extract_template(lvl)
         assert a is not None and b is not None

@@ -73,7 +73,7 @@ def test_depth_normal_pyramid_extraction_equals_oracle(golden):
 
     g = golden("match_dnonly")
     dep, _, mask = scenes.sphere_scene(checker_px=16)
-    pyr = DepthNormalPyramid(dep, levels=2, mask=mask.astype(np.uint8) * 255)
+    pyr = DepthNormalPyramid(dep, levels=2, mask=mask.astype(np.uint8) * 255, device="cpu")
     tps = [pyr.extract_template(lvl) for lvl in range(2)]
     assert all(t is not None for t in tps)
     assert tuple(crop_templates(tps)) == (246, 166, 168, 168)
