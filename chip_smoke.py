@@ -89,6 +89,39 @@ Phases (each raises on failure, so the script exits non-zero):
               found, ADD-0.1d 1.0, mean ADD < 0.01 m; K1-K6 launched;
               frame 0's poses on the card within 1 mm / 0.5 deg of
               device="cpu"; ms per evaluated frame and the harness's fps
+11. geometry utilities, odometry, PPF (off the detect path; no hand
+   kernel is launched, and the phase checks that every count stays 0),
+   at 480x640 on the card, held against the truth, device="cpu" and the
+   goldens in tests/golden/:
+   a. clean_depth on a Kinect-like noisy snowman frame (seeded axial
+              noise and holes), card vs cpu equal but +-1 mm on <= 0.1%
+              of pixels; cleaner.npz's cases within the oracle bounds of
+              tests/test_cleaner.py; ms per frame
+   b. normals_linemod on lmn_normals.npz's four cases, normals_sri and
+              normals_cross on sri_normals.npz's two clouds: the golden
+              bounds of tests/test_geom.py and tests/test_sri_normals.py,
+              card vs cpu with the same NaN masks and p99 within 1e-4 deg
+              (SRI 0.01 deg: its ray derivative turns an ulp of a norm
+              into ~0.004 deg); ms each
+   c. register_depth and warp_frame on the snowman frame: the identity
+              round trip and the known translation against
+              render_translated (tests/test_registration.py), card vs cpu
+              with the NaN mask equal on >= 99.9% of pixels and depths
+              within 1e-6 m; ms each
+   d. extract_planes on tests/test_plane.py's two-planes scene: >= 2
+              planes, labels card == cpu on >= 99.9%, coefficients within
+              1e-4; ms
+   e. odometry: ICP, FastICP, Rgbd and RgbdICP at the reference's default
+              (4 levels, iter_counts (7, 7, 7, 10)) on
+              tests/test_odometry.py's translated snowman pairs: the
+              motion within 4 mm and 1 deg, card vs cpu within 0.5 mm
+              and 0.05 deg; ms per compute
+   f. PPF: train on scenes.snowman_model() (exact normals), match on it
+              moved by a known pose with add_noise_pc(.., 0.001): the best
+              pose within 10% of the diameter and 25 deg of the truth;
+              the pair tables card vs cpu (keys and alpha vote bins equal
+              on >= 99.99% of pairs); ms for train and match, and the
+              vote tables' bytes
 
 The two-modality workload is bench.py's: the snowman objA and its
 0.78-scale objB trained with the port's add_view (rgb = the gray view x3)
@@ -1459,6 +1492,365 @@ def offline_phase(dev, scenes, K, gpu):
     return total
 
 
+# ----------------------------------------------------------------------
+# phase 11: geometry utilities, odometry, PPF (no hand kernel on this path)
+# ----------------------------------------------------------------------
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms per call over ``reps`` calls after one warm-up,
+    the card synchronized around each (for calls that sync themselves)."""
+    fn()
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def angles_deg(a, b) -> np.ndarray:
+    """Angle [deg] between unit normals [..., 3] in float64 (atan2 of the
+    cross and dot products: no arccos round-off near 1)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return np.degrees(np.arctan2(np.linalg.norm(np.cross(a, b), axis=-1), (a * b).sum(-1)))
+
+
+def golden(name: str):
+    return np.load(ROOT / "tests" / "golden" / f"{name}.npz")
+
+
+def pose_err(A, B):
+    """(translation m, rotation deg) between two 4x4 poses."""
+    A, B = np.asarray(A, np.float64), np.asarray(B, np.float64)
+    return float(np.linalg.norm(A[:3, 3] - B[:3, 3])), rot_deg(A[:3, :3], B[:3, :3])
+
+
+def normals_card_vs_cpu(label, name, got, want, p99_max):
+    """Same NaN and zero masks, p99 angle within ``p99_max`` deg."""
+    got, want = got.cpu().numpy(), want.numpy()
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        raise AssertionError(f"[{label}] {name}: NaN masks differ card vs cpu")
+    if not np.array_equal((got == 0).all(-1), (want == 0).all(-1)):
+        raise AssertionError(f"[{label}] {name}: zero masks differ card vs cpu")
+    m = np.isfinite(want).all(-1) & ~(want == 0).all(-1)
+    ang = angles_deg(got[m], want[m])
+    p99 = float(np.percentile(ang, 99))
+    if p99 > p99_max:
+        raise AssertionError(f"[{label}] {name}: card vs cpu p99 {p99:.2e} deg > {p99_max}")
+    return p99, float(ang.max())
+
+
+def geometry_cleaner_checks(dev, scenes, label, gpu):
+    from object_detector_6d_tpu_torch.geom.cleaner import clean_depth
+
+    # a Kinect-like noisy frame: the snowman depth with the NIL model's
+    # axial noise sigma_z(z) and a few holes (seeded)
+    dep, _, _ = scenes.snowman_scene()
+    z = dep.astype(np.float64) / 1000.0
+    rng = np.random.RandomState(11)
+    noisy = dep + rng.normal(0.0, 1.0, dep.shape) * (0.0012 + 0.0019 * (z - 0.4) ** 2) * 1000
+    noisy = np.clip(np.round(noisy), 0, 65535).astype(np.uint16)
+    noisy[rng.rand(*dep.shape) < 0.01] = 0
+    noisy[200:216, 300:340] = 0
+    card = clean_depth(noisy, device=dev)
+    cpu = clean_depth(noisy, device="cpu")
+    if card.dtype != torch.uint16 or card.shape != (480, 640):
+        raise AssertionError(f"[{label}] clean_depth: {card.dtype} {tuple(card.shape)}")
+    d = np.abs(card.cpu().numpy().astype(int) - cpu.numpy().astype(int))
+    share = float((d > 0).mean())
+    if d.max() > 1 or share > 1e-3:
+        raise AssertionError(f"[{label}] clean_depth card vs cpu: max {d.max()} mm on "
+                             f"{share:.2e} of pixels")
+    g = golden("cleaner")
+    worst = []
+    for case in ("rand", "snow", "holes"):
+        got = clean_depth(g[case + "_in"], device=dev).cpu().numpy().astype(int)
+        oracle = g[case + "_q"].astype(int)
+        do = np.abs(got - oracle)[3:-3, 3:-3]
+        m = oracle[3:-3, 3:-3] > 0
+        if do[m].mean() >= 2.0 or do[m].max() > 5:
+            raise AssertionError(f"[{label}] clean_depth {case} vs the oracle: mean "
+                                 f"{do[m].mean():.2f} max {do[m].max()} mm")
+        worst.append(f"{case} mean {do[m].mean():.3f} max {do[m].max()}")
+    frame = torch.as_tensor(noisy, device=dev)
+    ms = cuda_ms(lambda: clean_depth(frame))
+    log(f"[{label}] clean_depth 480x640 u16: card vs cpu max {d.max()} mm on {share:.2e} of "
+        f"pixels; vs the oracle (mm): {'; '.join(worst)}; time {ms:.4f} ms per frame "
+        f"(CUDA events; {gpu})")
+    return {"clean_depth": ms}
+
+
+def geometry_normals_checks(dev, label, gpu):
+    from object_detector_6d_tpu_torch.geom import normals
+    from object_detector_6d_tpu_torch.geom.backproject import depth_to_3d
+
+    times = {}
+    g = golden("lmn_normals")
+    K = g["K"]
+    lines = []
+    for case in ("sphere", "snowman", "rampxy", "holes"):
+        card = normals.normals_linemod(g[case + "_in"], K, device=dev)
+        cpu = normals.normals_linemod(g[case + "_in"], K, device="cpu")
+        p99, mx = normals_card_vs_cpu(label, f"normals_linemod {case}", card, cpu, 1e-4)
+        got, ref = card.cpu().numpy(), g[case + "_n"]
+        zeros_ref = (ref == 0).all(-1) & ~np.isnan(ref).any(-1)
+        if not (np.array_equal(np.isnan(got).any(-1), np.isnan(ref).any(-1)) and np.array_equal(
+                (got == 0).all(-1) & ~np.isnan(got).any(-1), zeros_ref)):
+            raise AssertionError(f"[{label}] normals_linemod {case}: masks differ from the oracle")
+        m = np.isfinite(ref).all(-1) & ~zeros_ref
+        ang = np.degrees(np.arccos(np.clip(np.abs((got[m] * ref[m]).sum(-1)), 0, 1)))
+        if np.percentile(ang, 99) >= 0.2 or ang.mean() >= 0.05:
+            raise AssertionError(f"[{label}] normals_linemod {case} vs the oracle: p99 "
+                                 f"{np.percentile(ang, 99):.3f} mean {ang.mean():.3f} deg")
+        lines.append(f"{case} oracle p99 {np.percentile(ang, 99):.4f}, card vs cpu p99 "
+                     f"{p99:.2e} max {mx:.2e}")
+    dep = torch.as_tensor(g["snowman_in"], device=dev)
+    times["normals_linemod"] = cuda_ms(lambda: normals.normals_linemod(dep, K))
+    log(f"[{label}] normals_linemod (deg): {'; '.join(lines)}")
+
+    g = golden("sri_normals")
+    K = g["K"]
+    lines = []
+    for case in ("sphere", "snowman"):
+        cloud = depth_to_3d(torch.as_tensor(g[case + "_in"].astype(np.int32), device=dev), K)
+        cloud_cpu = cloud.cpu()
+        card = normals.normals_sri(cloud, K)
+        # the ray derivative is a difference of neighbouring unit rays: one
+        # ulp of a norm moves it by ~0.004 deg (CPU, two norm orders)
+        p99, mx = normals_card_vs_cpu(label, f"normals_sri {case}", card,
+                                      normals.normals_sri(cloud_cpu, K), 0.01)
+        got, ref = card.cpu().numpy(), g[case + "_n"]
+        both = np.isfinite(ref).all(-1) & np.isfinite(got).all(-1)
+        inner = np.zeros_like(both)
+        inner[8:-8, 8:-8] = True
+        ang = np.degrees(np.arccos(np.clip(np.abs((ref * got).sum(-1)), 0, 1)[both & inner]))
+        p50, p99o = np.percentile(ang, [50, 99])
+        if p50 > 0.2 or p99o > 4.0 or np.isfinite(got).all(-1).mean() <= 0.999:
+            raise AssertionError(f"[{label}] normals_sri {case} vs the oracle: p50 {p50:.3f} "
+                                 f"p99 {p99o:.3f} deg")
+        cross = normals.normals_cross(cloud)
+        p99c, mxc = normals_card_vs_cpu(label, f"normals_cross {case}", cross,
+                                        normals.normals_cross(cloud_cpu), 1e-4)
+        cc = cross.cpu().numpy()
+        fin = np.isfinite(cc).all(-1)
+        if fin.mean() < 0.99 or np.abs(np.linalg.norm(cc[fin], axis=-1) - 1).max() > 1e-5 or \
+                (cc[fin][:, 2] > 0).any():
+            raise AssertionError(f"[{label}] normals_cross {case}: not unit, camera-facing")
+        lines.append(f"{case} sri oracle p50 {p50:.4f} p99 {p99o:.4f}, card vs cpu p99 "
+                     f"{p99:.2e} max {mx:.2e}; cross card vs cpu p99 {p99c:.2e} max {mxc:.2e}")
+    times["normals_sri"] = cuda_ms(lambda: normals.normals_sri(cloud, K))
+    times["normals_cross"] = cuda_ms(lambda: normals.normals_cross(cloud))
+    log(f"[{label}] normals_sri / normals_cross (deg): {'; '.join(lines)}")
+    log(f"[{label}] time 480x640: normals_linemod {times['normals_linemod']:.4f}, normals_sri "
+        f"{times['normals_sri']:.4f}, normals_cross {times['normals_cross']:.4f} ms (CUDA "
+        f"events; {gpu})")
+    return times
+
+
+def geometry_registration_checks(dev, scenes, K, label, gpu):
+    from object_detector_6d_tpu_torch.core.se3 import SE3
+    from object_detector_6d_tpu_torch.geom.registration import register_depth, warp_frame
+
+    dep, gray, mask = scenes.snowman_scene()
+    out = register_depth(dep, K, K, np.eye(4), (480, 640), device=dev).cpu().numpy()
+    m = np.isfinite(out)
+    rt_err = float(np.abs(out[m] - dep.astype(np.float32)[m] / 1000.0).max())
+    if m.mean() <= 0.99 or rt_err > 1e-3:
+        raise AssertionError(f"[{label}] register_depth identity: {m.mean():.4f} finite, "
+                             f"max err {rt_err}")
+    t = np.array([0.03, -0.01, -0.02], np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = t
+    warped = warp_frame(dep, K, T, device=dev).cpu().numpy()
+    ref_dep, ref_mask, _ = scenes.render_translated(dep, mask, K, t)
+    both = ref_mask & np.isfinite(warped)
+    frac = both.sum() / max(ref_mask.sum(), 1)
+    med = float(np.median(np.abs(warped[both] - ref_dep[both].astype(np.float32) / 1000.0)))
+    if frac <= 0.8 or med >= 2e-3:
+        raise AssertionError(f"[{label}] warp_frame vs render_translated: {frac:.3f}, {med}")
+    img = np.repeat(gray[..., None], 3, 2)
+    Trt = SE3.exp(torch.tensor([0.05, -0.03, 0.02, 0.05, 0.01, -0.03])).numpy()
+    worst = []
+    for name, Rt in (("identity", np.eye(4)), ("translation", T), ("rigid", Trt)):
+        pairs = [(register_depth(dep, K, K, Rt, (480, 640), device=d),) + tuple(
+            warp_frame(dep, K, Rt, img, device=d)) for d in (dev, "cpu")]
+        (rc, wc, ic), (rp, wp, ip) = [[x.cpu().numpy() for x in p] for p in pairs]
+        for what, a, b in (("register_depth", rc, rp), ("warp_frame", wc, wp)):
+            same_nan = float((np.isnan(a) == np.isnan(b)).mean())
+            fin = np.isfinite(a) & np.isfinite(b)
+            dz = float(np.abs(a[fin] - b[fin]).max())
+            if same_nan < 0.999 or dz > 1e-6:
+                raise AssertionError(f"[{label}] {what} {name} card vs cpu: NaN mask equal on "
+                                     f"{same_nan:.5f}, max |dz| {dz}")
+            worst.append(f"{what} {name} {same_nan:.5f} / {dz:.1e}")
+        img_same = float((ic == ip).all(-1).mean())
+        if img_same < 0.999:
+            raise AssertionError(f"[{label}] warp_frame image {name}: equal on {img_same:.5f}")
+    d_t = torch.as_tensor(dep.astype(np.int32), device=dev)
+    i_t = torch.as_tensor(img, device=dev)
+    ms_reg = cuda_ms(lambda: register_depth(d_t, K, K, Trt, (480, 640)))
+    ms_warp = cuda_ms(lambda: warp_frame(d_t, K, Trt, i_t))
+    log(f"[{label}] register_depth identity: {m.mean():.4f} finite, max err {rt_err:.2e} m; "
+        f"warp_frame vs render_translated: {frac:.3f} of the object, median |dz| {med:.2e} m; "
+        f"card vs cpu (NaN mask share / max |dz| m): {'; '.join(worst)}")
+    log(f"[{label}] time 480x640: register_depth {ms_reg:.4f} ms, warp_frame (depth + BGR) "
+        f"{ms_warp:.4f} ms (CUDA events; {gpu})")
+    return {"register_depth": ms_reg, "warp_frame": ms_warp}
+
+
+def geometry_plane_checks(dev, scenes, K, label, gpu):
+    from object_detector_6d_tpu_torch.geom.backproject import depth_to_3d
+    from object_detector_6d_tpu_torch.geom.plane import extract_planes
+
+    dep, _, mask = scenes.snowman_scene()
+    yy, xx = np.mgrid[0:480, 0:640]
+    dep = dep.copy()
+    strip = xx < 120
+    dep[strip] = (1200 + 0.8 * yy).astype(np.uint16)[strip]
+    pts = depth_to_3d(torch.as_tensor(dep.astype(np.int32), device=dev), K)
+    card = extract_planes(pts)
+    cpu = extract_planes(pts.cpu())
+    same = float((card.labels == cpu.labels).mean())
+    if len(card.coefficients) < 2 or len(card.coefficients) != len(cpu.coefficients) or \
+            same < 0.999 or np.abs(card.coefficients - cpu.coefficients).max() > 1e-4:
+        raise AssertionError(f"[{label}] extract_planes: {len(card.coefficients)} planes "
+                             f"(cpu {len(cpu.coefficients)}), labels equal on {same:.5f}")
+    labels_bg = card.labels[(~mask) & (xx >= 160)]
+    main = np.bincount(labels_bg[labels_bg != 255], minlength=1).argmax()
+    if (labels_bg == main).mean() <= 0.9:
+        raise AssertionError(f"[{label}] extract_planes: background plane {main} covers "
+                             f"{(labels_bg == main).mean():.3f}")
+    ms = host_ms(lambda: extract_planes(pts))
+    log(f"[{label}] extract_planes (two planes + the snowman): {len(card.coefficients)} planes, "
+        f"labels card == cpu on {same:.5f}, max |coefficient| diff "
+        f"{np.abs(card.coefficients - cpu.coefficients).max():.2e}; time {ms:.2f} ms per "
+        f"cloud (host clock, median of 3; {gpu})")
+    return {"extract_planes": ms}
+
+
+def geometry_odometry_checks(dev, scenes, K, label, gpu):
+    from object_detector_6d_tpu_torch.odometry import odometry as odo
+
+    times = {}
+    lines = []
+    for factory in (odo.ICPOdometry, odo.FastICPOdometry, odo.RgbdOdometry,
+                    odo.RgbdICPOdometry):
+        o = factory()
+        rgb = o.method in ("Rgbd", "RgbdICP")
+        # tests/test_odometry.py's pairs: the camera moves by t
+        t = np.array([0.008, -0.004, 0.006]) if rgb else np.array([0.012, -0.007, 0.009])
+        dep1, gray1, mask = scenes.snowman_scene()
+        if rgb:
+            yy, xx = np.mgrid[0:480, 0:640]
+            gray1 = (127 + 90 * np.sin(xx / 17.0) * np.cos(yy / 23.0)).astype(np.uint8)
+        dep2, _, gray2 = scenes.render_translated(dep1, mask | True, K, -t, bg_mm=0,
+                                                  smooth_texture=rgb)
+        imgs = [np.repeat(g[..., None], 3, 2) for g in (gray1, gray2)]
+        Rts = {}
+        for d in (dev, "cpu"):
+            src = odo.OdometryFrame.create(dep1, K, image=imgs[0], device=d)
+            dst = odo.OdometryFrame.create(dep2, K, image=imgs[1], device=d)
+            ok, Rts[str(d)] = o.compute(src, dst)
+            if not ok or len(src.clouds) != 4:
+                raise AssertionError(f"[{label}] {o.method}: compute failed")
+        Rt = Rts[str(dev)]
+        et = float(np.abs(Rt[:3, 3] + t).max())
+        er = pose_err(Rt, np.eye(4))[1]
+        if et >= 0.004 or er >= 1.0:
+            raise AssertionError(f"[{label}] {o.method}: t err {et * 1e3:.3f} mm, rotation "
+                                 f"{er:.3f} deg")
+        dt, dr = pose_err(Rt, Rts["cpu"])
+        if dt > 5e-4 or dr > 0.05:
+            raise AssertionError(f"[{label}] {o.method} card vs cpu: {dt * 1e3:.4f} mm "
+                                 f"{dr:.4f} deg")
+        src = odo.OdometryFrame.create(dep1, K, image=imgs[0], device=dev)
+        dst = odo.OdometryFrame.create(dep2, K, image=imgs[1], device=dev)
+        times[o.method] = host_ms(lambda: o.compute(src, dst))
+        lines.append(f"{o.method} t err {et * 1e3:.3f} mm, rotation {er:.4f} deg, card vs cpu "
+                     f"{dt * 1e3:.5f} mm / {dr:.5f} deg, {times[o.method]:.2f} ms")
+    log(f"[{label}] odometry, 4 levels, iter_counts (7, 7, 7, 10), 480x640: "
+        f"{'; '.join(lines)} per compute (host clock, median of 3; {gpu})")
+    return {f"odometry {k}": v for k, v in times.items()}
+
+
+def geometry_ppf_checks(dev, scenes, label, gpu):
+    from object_detector_6d_tpu_torch.core.se3 import SE3
+    from object_detector_6d_tpu_torch.ppf import detector as ppf
+    from object_detector_6d_tpu_torch.ppf.helpers import add_noise_pc, transform_pc_pose
+
+    model = scenes.snowman_model()
+    T = SE3.exp(torch.tensor([0.4, -0.3, 0.5, 0.06, -0.02, 0.54])).numpy()
+    scene = add_noise_pc(transform_pc_pose(model, T), 0.001)
+    dets = {}
+    for d in (dev, "cpu"):
+        dets[str(d)] = ppf.PPFDetector(device=d)
+        dets[str(d)].train_model(model)
+    det, cpu = dets[str(dev)], dets["cpu"]
+    # the pair tables before sorting, card against CPU: an arccos that
+    # lands an ulp apart at a bin edge moves a key by one bin. alpha is an
+    # atan2 that is ill-conditioned for pairs near the aligned x axis (an
+    # ulp of a coordinate moves it ~1e-4 rad there), so it is held by the
+    # vote bin it falls in (2 pi / (2 num_angles) wide)
+    raw = [ppf._train_pairs(torch.as_tensor(det.model_sampled, device=d), det._dist_step(),
+                            det.num_angles) for d in (dev, "cpu")]
+    keys_same = float((raw[0][0].cpu() == raw[1][0]).float().mean())
+    alphas = [r[1].cpu().numpy().astype(np.float64) for r in raw]
+    alpha_diff = float(np.abs(alphas[0] - alphas[1]).max())
+    width = 2 * np.pi / (2 * det.num_angles)
+    bins_same = float((np.floor((alphas[0] + np.pi) / width)
+                       == np.floor((alphas[1] + np.pi) / width)).mean())
+    sorted_same = bool(np.array_equal(det._keys_sorted, cpu._keys_sorted)
+                       and np.array_equal(det._vals_i, cpu._vals_i))
+    if keys_same < 0.9999 or bins_same < 0.9999 or not np.array_equal(det.model_sampled,
+                                                                        cpu.model_sampled):
+        raise AssertionError(f"[{label}] PPF tables card vs cpu: keys equal on {keys_same}, "
+                             f"alpha bins on {bins_same}")
+    poses = det.match(scene)
+    if not poses:
+        raise AssertionError(f"[{label}] PPF: no hypotheses")
+    et, er = pose_err(poses[0].pose, T)
+    if et >= 0.1 * det.model_diameter or er >= 25.0:
+        raise AssertionError(f"[{label}] PPF best pose: {et * 1e3:.2f} mm, {er:.2f} deg")
+    pc = cpu.match(scene)
+    dt, dr = pose_err(poses[0].pose, pc[0].pose)
+    ms_train = host_ms(lambda: det.train_model(model))
+    ms_match = host_ms(lambda: det.match(scene))
+    log(f"[{label}] PPF on the snowman model ({len(model)} points, {len(det.model_sampled)} "
+        f"sampled, {len(det._keys_sorted)} pairs, diameter {det.model_diameter:.4f} m): "
+        f"tables card vs cpu: pair keys equal on {keys_same:.7f}, alpha bins on "
+        f"{bins_same:.7f} (max |alpha| diff {alpha_diff:.2e} rad), sorted key and index "
+        f"tables equal {sorted_same}; best pose {et * 1e3:.3f} mm "
+        f"/ {er:.3f} deg from the truth ({poses[0].num_votes} votes), card vs cpu "
+        f"{dt * 1e3:.4f} mm / {dr:.4f} deg; vote tables {det.vote_table_bytes} bytes a block; "
+        f"time train {ms_train:.2f} ms, match {ms_match:.2f} ms (host clock, median of 3; {gpu})")
+    return {"ppf train": ms_train, "ppf match": ms_match}
+
+
+def geometry_phase(dev, scenes, K, counted, gpu):
+    """Phase 11: the geometry utilities, odometry and PPF on the card at
+    480x640, held against the truth, device="cpu" and the goldens. No hand
+    kernel lies on this path: every count stays 0. Returns its times."""
+    label = "geometry"
+    for fn in counted:
+        fn.launches = 0
+    times = {}
+    for step in (lambda: geometry_cleaner_checks(dev, scenes, label, gpu),
+                 lambda: geometry_normals_checks(dev, label, gpu),
+                 lambda: geometry_registration_checks(dev, scenes, K, label, gpu),
+                 lambda: geometry_plane_checks(dev, scenes, K, label, gpu),
+                 lambda: geometry_odometry_checks(dev, scenes, K, label, gpu),
+                 lambda: geometry_ppf_checks(dev, scenes, label, gpu)):
+        times.update(step())
+    launches = {fn.__name__: fn.launches for fn in counted}
+    if any(launches.values()):
+        raise AssertionError(f"[{label}] a hand kernel was launched: {launches}")
+    log(f"[{label}] kernel launches over the phase: {launches}")
+    return times
+
+
 def run(dev, gpu: str) -> None:
     from object_detector_6d_tpu_torch.api.detector import Detector
     from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
@@ -1520,6 +1912,11 @@ def run(dev, gpu: str) -> None:
     t1 = time.time()
     offline = offline_phase(dev, scenes, K, gpu)
     log(f"phase offline: {time.time() - t1:.1f} s; launches {offline}")
+
+    # phase 11: geometry utilities, odometry, PPF
+    t1 = time.time()
+    geometry_phase(dev, scenes, K, counted2, gpu)
+    log(f"phase geometry: {time.time() - t1:.1f} s")
 
     for r in recs:
         r["launches"] = launches[r["name"]] + offline[r["name"]]

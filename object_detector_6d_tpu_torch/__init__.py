@@ -52,6 +52,18 @@ Offline, before and after detection (on the detector's device as well):
                                 ADD(-S)-0.1d over a BOP-layout scene
                                 (eval/, data/bop.py, io/png.py, io/ply.py)
 
+Geometry utilities, odometry and template-free detection, off the
+detect path (on the given device as well):
+
+    clean_depth, register_depth / warp_frame, extract_planes (geom/)
+    normals_fals / normals_linemod / normals_cross / normals_sri
+    OdometryFrame.create + ICPOdometry / RgbdOdometry / RgbdICPOdometry /
+    FastICPOdometry().compute(src, dst)          odometry/
+    PPFDetector().train_model(model6) / .match(scene6) / .write / .read
+                                point-pair-feature voting (ppf/)
+    utils/debug.py (checked, nan_watch), utils/profiling.py (scope,
+    trace_to, DeviceTimer)
+
 The package imports ``torch`` and numpy, never ``jax`` nor the
 reference package. The names below, the reference's public surface and
 this list's entry points, load their modules at first use. What is still
@@ -60,7 +72,7 @@ to port is listed in ROADMAP.md.
 
 import importlib
 
-__version__ = "0.1.0"
+from object_detector_6d_tpu_torch.version import __version__
 
 _EXPORTS = {
     "Detector": "api.detector",
@@ -82,6 +94,22 @@ _EXPORTS = {
     "make_synthetic_bop_scene": "data.bop",
     "evaluate_scene": "eval.harness",
     "EvalResult": "eval.harness",
+    "clean_depth": "geom.cleaner",
+    "extract_planes": "geom.plane",
+    "PlaneExtraction": "geom.plane",
+    "register_depth": "geom.registration",
+    "warp_frame": "geom.registration",
+    "normals_fals": "geom.normals",
+    "normals_linemod": "geom.normals",
+    "normals_cross": "geom.normals",
+    "normals_sri": "geom.normals",
+    "Odometry": "odometry.odometry",
+    "OdometryFrame": "odometry.odometry",
+    "ICPOdometry": "odometry.odometry",
+    "RgbdOdometry": "odometry.odometry",
+    "RgbdICPOdometry": "odometry.odometry",
+    "FastICPOdometry": "odometry.odometry",
+    "PPFDetector": "ppf.detector",
 }
 
 __all__ = ["__version__", *_EXPORTS]

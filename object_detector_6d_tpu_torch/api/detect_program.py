@@ -28,6 +28,7 @@ from object_detector_6d_tpu_torch.core.se3 import SE3
 from object_detector_6d_tpu_torch.match import program as mp
 from object_detector_6d_tpu_torch.ops.geometry import FusedScene, planes_to_scene8
 from object_detector_6d_tpu_torch.refine.projective import icp_levels
+from object_detector_6d_tpu_torch.utils.debug import nan_watch
 
 
 class PackedViews(NamedTuple):
@@ -415,6 +416,9 @@ def make_detect_program(
                 poses2.reshape(B, M_fine, 4, 4))
         final = torch.matmul(best_pose, views.view_poses[tids])
         keep_out = keep & torch.isfinite(best_res)
+        # debug mode only (no sync otherwise): NaN in a KEPT pose is a bug,
+        # NaN is legal only as the masked-invalid value inside the program
+        final = nan_watch(final, "detect.poses", mask=keep_out[..., None, None])
         return final, best_res, keep_out
 
     @torch.no_grad()

@@ -1,11 +1,12 @@
 """SE(3) rigid transforms (port of object_detector_6d_tpu/core/se3.py).
 
-The parts the detect slice uses: Rodrigues ``exp`` (the ICP update),
-``apply``/``rotate`` (association), ``compose`` and the quaternion forms
-(device cluster NMS). Poses are [..., 4, 4] float32 tensors; every
-function broadcasts over leading batch axes. Matrix products run in full
+Rodrigues ``exp`` (the ICP update) and ``so3_log`` / ``log``,
+``apply``/``rotate`` (association), ``compose``, ``inverse`` (odometry,
+PPF) and the quaternion forms (device cluster NMS). Poses are
+[..., 4, 4] float32 tensors; every function broadcasts over leading
+batch axes. Matrix products run in full
 float32: ``torch.backends.cuda.matmul.allow_tf32`` is False by default
-and this package never sets it.
+and this package never turns it on.
 """
 
 from __future__ import annotations
@@ -39,6 +40,25 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return eye + a[..., None, None] * W + b[..., None, None] * WW
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> rotation vector [..., 3]."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_theta)
+    vee = torch.stack(
+        [
+            R[..., 2, 1] - R[..., 1, 2],
+            R[..., 0, 2] - R[..., 2, 0],
+            R[..., 1, 0] - R[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    small = theta < 1e-6
+    scale = torch.where(small, 0.5 + theta ** 2 / 12.0,
+                        theta / (2.0 * torch.sin(torch.where(small, 1.0, theta))))
+    return vee * scale[..., None]
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a x b over the last axis (the textbook component formula)."""
     return torch.stack(
@@ -53,6 +73,18 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class SE3:
     """Namespace of pure functions over [..., 4, 4] homogeneous transforms."""
+
+    @staticmethod
+    def identity(dtype=torch.float32, batch_shape=(), device=None) -> torch.Tensor:
+        return torch.eye(4, dtype=dtype, device=device).expand(*batch_shape, 4, 4)
+
+    @staticmethod
+    def rotation(T: torch.Tensor) -> torch.Tensor:
+        return T[..., :3, :3]
+
+    @staticmethod
+    def translation(T: torch.Tensor) -> torch.Tensor:
+        return T[..., :3, 3]
 
     @staticmethod
     def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -70,6 +102,16 @@ class SE3:
         """Twist [..., 6] (rotation w, translation v) -> [..., 4, 4];
         translation taken verbatim (the ICP's linearized update)."""
         return SE3.from_rt(so3_exp(twist[..., :3]), twist[..., 3:])
+
+    @staticmethod
+    def log(T: torch.Tensor) -> torch.Tensor:
+        """[..., 4, 4] -> twist [..., 6]: rotation vector and raw translation."""
+        return torch.cat([so3_log(T[..., :3, :3]), T[..., :3, 3]], dim=-1)
+
+    @staticmethod
+    def inverse(T: torch.Tensor) -> torch.Tensor:
+        Rt = T[..., :3, :3].transpose(-1, -2)
+        return SE3.from_rt(Rt, -torch.matmul(Rt, T[..., :3, 3, None])[..., 0])
 
     @staticmethod
     def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

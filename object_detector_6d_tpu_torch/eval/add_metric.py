@@ -20,22 +20,10 @@ by ~1e-6 m against the plain one (ROADMAP queue 3).
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
-from object_detector_6d_tpu_torch.core.device import checked_device
-
-
-@contextlib.contextmanager
-def _no_tf32():
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+from object_detector_6d_tpu_torch.core.device import checked_device, no_tf32
 
 
 def _tensors(*xs, device):
@@ -62,7 +50,7 @@ def _apply(T, pts):
 def add_distance(pose_est, pose_gt, model_pts, device="cuda") -> torch.Tensor:
     """ADD: mean ||T_e x - T_g x||. Broadcasts over leading pose axes."""
     pose_est, pose_gt, model_pts = _tensors(pose_est, pose_gt, model_pts, device=device)
-    with _no_tf32():
+    with no_tf32():
         pe = _apply(pose_est, model_pts)
         pg = _apply(pose_gt, model_pts)
     return torch.linalg.vector_norm(pe - pg, dim=-1).mean(-1)
@@ -71,7 +59,7 @@ def add_distance(pose_est, pose_gt, model_pts, device="cuda") -> torch.Tensor:
 def adds_distance(pose_est, pose_gt, model_pts, device="cuda") -> torch.Tensor:
     """ADD-S: mean closest-point distance (symmetric objects)."""
     pose_est, pose_gt, model_pts = _tensors(pose_est, pose_gt, model_pts, device=device)
-    with _no_tf32():
+    with no_tf32():
         pe = _apply(pose_est, model_pts)
         pg = _apply(pose_gt, model_pts)
         d2 = (_sqnorm(pe)[..., :, None] + _sqnorm(pg)[..., None, :]
@@ -83,7 +71,7 @@ def model_diameter(model_pts, device="cuda") -> float:
     """Max pairwise distance (object diameter)."""
     (pts,) = _tensors(model_pts, device=device)
     sq = _sqnorm(pts)
-    with _no_tf32():
+    with no_tf32():
         d2 = sq[:, None] + sq[None, :] - 2.0 * torch.matmul(pts, pts.T)
     return float(torch.sqrt(torch.clamp(d2.max(), min=0.0)))
 

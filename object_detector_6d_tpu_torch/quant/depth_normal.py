@@ -38,8 +38,13 @@ def _shift(img: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
     return p[:, y0:y0 + H, x0:x0 + W]
 
 
-def ring_gradient(d: torch.Tensor, difference_threshold: int):
-    """Bilateral-masked ring least squares: (ddx, ddy, det) int32 [B, H, W]."""
+def ring_gradient(d: torch.Tensor, difference_threshold: int, inclusive: bool = False):
+    """Bilateral-masked ring least squares: (ddx, ddy, det) int32 [B, H, W].
+
+    The quantizer keeps a sample when ``|delta| < threshold`` (bit-exact
+    against linemod.cpp); the real-valued LINEMOD normals
+    (geom/normals.py) keep it when ``|delta| <= threshold``
+    (``inclusive``), as the oracle's normal.cpp does."""
     A0 = torch.zeros_like(d)
     A1 = torch.zeros_like(d)
     A3 = torch.zeros_like(d)
@@ -47,7 +52,9 @@ def ring_gradient(d: torch.Tensor, difference_threshold: int):
     b1 = torch.zeros_like(d)
     for dx, dy in _RING:
         delta = _shift(d, dx, dy) - d
-        f = (torch.abs(delta) < difference_threshold).to(torch.int32)
+        ok = (torch.abs(delta) <= difference_threshold if inclusive
+              else torch.abs(delta) < difference_threshold)
+        f = ok.to(torch.int32)
         A0 = A0 + f * (dx * dx)
         A1 = A1 + f * (dx * dy)
         A3 = A3 + f * (dy * dy)

@@ -172,3 +172,41 @@ def icp_levels(
             n_in = torch.where(active, nin, n_in)
             upd = torch.where(active, new_upd, upd)
     return residual, pose, n_in
+
+
+def projective_icp(
+    model_pc: torch.Tensor,  # [N, 6] (NaN rows = padding)
+    pose0: torch.Tensor,  # [4, 4]
+    scene_flat: torch.Tensor,  # [H*W, 6] NaNs zeroed, or [H*W, 7] packed
+    s_valid,  # [H*W] bool (ignored when scene_flat already has 7 columns)
+    fx: float, fy: float, cx: float, cy: float,
+    H: int,
+    W: int,
+    iterations: int = 100,
+    tolerance: float = 1e-4,
+    rejection_scale: float = 2.5,  # kept for signature parity; unused
+    num_levels: int = 6,
+    corr_dist_base: float = 0.015,
+    solves: int = 1,
+):
+    """Coarse-to-fine refinement of one pose (the reference's
+    single-hypothesis wrapper over ``icp_levels``), on the inputs' device.
+
+    Returns (residual, pose, n_inliers) as 0-dim, [4, 4] and 0-dim
+    tensors; ``residual`` is the mean absolute point-to-plane distance of
+    the inliers at the finest level."""
+    if scene_flat.shape[-1] == 6:
+        scene7 = torch.cat([scene_flat, s_valid[:, None].to(scene_flat.dtype)], -1)
+    else:
+        scene7 = scene_flat
+    res, pose, n_in = icp_levels(
+        model_pc[None], pose0[None], scene7[None],
+        torch.zeros(1, dtype=torch.int64, device=scene7.device),
+        fx, fy, cx, cy, H, W,
+        levels=tuple(range(num_levels - 1, -1, -1)),
+        iters_per_level=max(1, iterations // num_levels // max(1, solves)),
+        tolerance=tolerance,
+        corr_dist_base=corr_dist_base,
+        solves=solves,
+    )
+    return res[0], pose[0], n_in[0]

@@ -28,7 +28,15 @@ def test_importing_the_pipeline_loads_no_jax():
     code = ("import sys, object_detector_6d_tpu_torch.api.pipeline, "
             "object_detector_6d_tpu_torch.api.streaming, "
             "object_detector_6d_tpu_torch.io.convert, "
-            "object_detector_6d_tpu_torch.data.synthetic, parity_torch\n"
+            "object_detector_6d_tpu_torch.data.synthetic, parity_torch, "
+            "object_detector_6d_tpu_torch.geom.cleaner, "
+            "object_detector_6d_tpu_torch.geom.plane, "
+            "object_detector_6d_tpu_torch.geom.registration, "
+            "object_detector_6d_tpu_torch.odometry.odometry, "
+            "object_detector_6d_tpu_torch.ppf.detector, "
+            "object_detector_6d_tpu_torch.utils.debug, "
+            "object_detector_6d_tpu_torch.utils.profiling, "
+            "object_detector_6d_tpu_torch.version\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'object_detector_6d_tpu' or m.startswith('object_detector_6d_tpu.')]\n"
             "assert not bad, bad\nprint('clean')")
@@ -115,3 +123,58 @@ def test_kernel_source_hash_tracks_sources():
     names = {p.name for p in kernels.CSRC.glob("*.cu")}
     assert names == {"cg_quantize.cu", "dn_quantize.cu", "response_spread.cu",
                      "refine_sweep.cu", "fused_scene.cu", "coarse_sweep.cu"}
+
+
+def _entry_points():
+    """Each new entry point called on numpy input with its default device."""
+    from object_detector_6d_tpu_torch.geom import normals
+    from object_detector_6d_tpu_torch.geom.backproject import depth_to_3d_sparse
+    from object_detector_6d_tpu_torch.geom.cleaner import clean_depth
+    from object_detector_6d_tpu_torch.geom.plane import extract_planes
+    from object_detector_6d_tpu_torch.geom.registration import register_depth, warp_frame
+    from object_detector_6d_tpu_torch.odometry.odometry import OdometryFrame
+    from object_detector_6d_tpu_torch.ppf import helpers
+    from object_detector_6d_tpu_torch.ppf.detector import PPFDetector
+
+    K = np.array([[500.0, 0, 16], [0, 500.0, 12], [0, 0, 1]])
+    dep = np.full((24, 32), 1000, np.uint16)
+    cloud = np.ones((24, 32, 3), np.float32)
+    pc = np.random.RandomState(0).uniform(-1, 1, (50, 6)).astype(np.float32)
+    return {
+        "clean_depth": lambda: clean_depth(dep),
+        "register_depth": lambda: register_depth(dep, K, K, np.eye(4), (24, 32)),
+        "warp_frame": lambda: warp_frame(dep, K, np.eye(4)),
+        "extract_planes": lambda: extract_planes(cloud, block_size=8),
+        "normals_linemod": lambda: normals.normals_linemod(dep, K),
+        "normals_cross": lambda: normals.normals_cross(cloud),
+        "normals_sri": lambda: normals.normals_sri(cloud, K),
+        "depth_to_3d_sparse": lambda: depth_to_3d_sparse([1], [2], [1.0], K),
+        "OdometryFrame.create": lambda: OdometryFrame.create(dep, K, levels=2),
+        "knn": lambda: helpers.knn(pc[:, :3], pc[:, :3], 2),
+        "compute_normals_pc3d": lambda: helpers.compute_normals_pc3d(pc, k=4),
+        "PPFDetector.train_model": lambda: PPFDetector().train_model(pc),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_new_entry_points_raise_without_a_card(name):
+    """Numpy input with the default device asks for the card: without one
+    the call raises, it never carries on on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        _entry_points()[name]()
+
+
+def test_ppf_match_raises_without_a_card(tmp_path):
+    """A detector trained (or read) for the CPU and asked for the card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    from object_detector_6d_tpu_torch.ppf.detector import PPFDetector
+
+    pc = np.random.RandomState(0).uniform(-1, 1, (60, 6)).astype(np.float32)
+    det = PPFDetector(device="cpu")
+    det.train_model(pc)
+    det.write(str(tmp_path / "m.npz"))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PPFDetector.read(str(tmp_path / "m.npz")).match(pc)
