@@ -122,6 +122,30 @@ Phases (each raises on failure, so the script exits non-zero):
               the pair tables card vs cpu (keys and alpha vote bins equal
               on >= 99.99% of pairs); ms for train and match, and the
               vote tables' bytes
+12. raw forms and windows, on phase 3's two-modality detector and frames:
+   a. raw     make_detect_program with device_nms=False and with
+              flat_output=True at batch=32: unflatten_outputs(flat) equals
+              the raw tuple, and make_cluster_stage applied to the raw tuple
+              equals the production record (PoseDetector.program), bitwise
+   b. one     batch=None on frame 0 against row 0 of the batch: packed and
+              keep equal, kept poses within 0.1 mm / 0.05 deg (the bound of
+              tests/test_torch_batch_size.py)
+   c. B=1     ColorGradient().quantize and DepthNormal().quantize of frame 0
+              (gray x3 and a noisy BGR frame) equal row 0 of K1 / K2;
+              response_spread (both modalities, T = 5 and 8) and
+              refine_sweep (the match program's frame-0 tables, and random
+              in-bounds tables with nfeat=None) equal their batched forms
+              (those comparison launches do not count)
+   d. windows detect_fused_batch at icp_window 96 and -1 (the resolved size
+              is logged) under 3b-c's gates, and the largest pose difference
+              from icp_window 0's records. At 96 px, smaller than objA's
+              template, the JAX reference itself puts objA off its truth in
+              frames 2 and 15, so objA must be off it in exactly those
+              frames and on it in the others; card vs cpu runs all 32
+              frames there and holds every class but objB, whose records
+              sit at the residual gate (its frames apart are logged)
+   e. times   ms per batch at icp_window 0, 96 and -1, in turns; K1-K6
+              launches of the phase, added to the kernels line
 
 The two-modality workload is bench.py's: the snowman objA and its
 0.78-scale objB trained with the port's add_view (rgb = the gray view x3)
@@ -133,25 +157,27 @@ depth-only workload has 130 depth-only distractors instead (13 classes x
 10, 63 / 31 features). Frames and templates come from fixed numpy seeds.
 
 The line before the last is {"kernels": [...]}: every kernel with its
-launches on the two-modality main path plus those of phase 10, its largest difference from its
-twin, its time beside the twin's, its bound (the larger of its bytes over
-the card's memory rate and its operations over the peak rate for their
-type, from this run's inputs; bound_by says which) and the time of one
-PyTorch call that computes the same function (library_ms, null where
-there is none), and cold_ms, its time with the 50 MB L2 flushed before
-each launch, where that was taken (K4, K5, K6; K6's 39 MB of planes fit
-the L2, so its repeated launches find them there). K4 is timed alone, through its C entry point, on the
+launches on the two-modality main path plus those of phases 10 and 12,
+its largest difference from its twin, its time beside the twin's, its
+bound (the larger of its bytes over the card's memory rate and its
+operations over the peak rate for their type, from this run's inputs;
+bound_by says which) and the time of one PyTorch call that computes the
+same function (library_ms, null where there is none), and cold_ms, its
+time with the 50 MB L2 flushed before each launch, where that was taken
+(K4, K5, K6; K6's 39 MB of planes fit the L2, so its repeated launches
+find them there). K4 is timed alone, through its C entry point, on the
 arguments the two-modality match program passes it, with the L2 flushed
 before each batch; its wrapper's time (argument checks with a host sync)
-is logged beside it. K3 is timed alone through its C entry point too,
-on the match program's 4 launches (ColorGradient and DepthNormal, both
+is logged beside it. K3 is timed alone through its C entry point too, on
+the match program's 4 launches (ColorGradient and DepthNormal, both
 levels; repeated launches, the L2 warm as after K1 and K2). The last
-line of standard output is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+line of standard output is {"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -183,6 +209,16 @@ REF_OBJB_SPURIOUS = 17
 SEED2 = 0
 REF2_OBJB_FOUND = 0
 REF2_OBJB_SPURIOUS = 27
+# the same at icp_window=96 (phase 12), a window smaller than objA's 179 x
+# 159 px template: objA lands 10.8 and 11.2 mm off its truth in frames 2
+# and 15 and on it in the other 30; objB found in none, 23 poses off. The
+# window leaves the objB hypotheses on objA's body at the 4 mm residual
+# gate, where a last-bit change of the ICP sums moves them by mm or flips
+# their keep (tests/test_torch_window_bench.py holds the port against the
+# reference frame by frame), so at 96 objA's off-truth frames must be the
+# reference's, and card against CPU holds every class but objB on all 32
+# frames and logs objB's frames apart
+REF2_W96_OBJA_OFF = (2, 15)
 OBJB_SLACK = 3
 N_DISTRACTOR_CLASSES = 13
 PER_CLASS = 10
@@ -823,9 +859,16 @@ def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
     return recs
 
 
-def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious, gpu):
+def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious, gpu,
+               ref_objA_off=None, xdev_frames=2, xdev_logged=()):
     """The path's main run (launch counts from 0, ground-truth gates, ms
-    per batch), then card against CPU. Returns (launches, ms per batch)."""
+    per batch), then card against CPU on the first ``xdev_frames`` frames.
+    objA must be on the truth in >= 90% of frames with no pose off it, or,
+    where the reference itself misses (``ref_objA_off``: the frames where
+    its objA is off the truth), off it in exactly those frames and on it
+    in all others. Card against CPU holds every class but those of
+    ``xdev_logged``, whose frames apart it logs.
+    Returns (launches, ms per batch)."""
     from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
 
     for fn in counted:
@@ -851,10 +894,18 @@ def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious
         f"{found['objB']}/{B} (reference {ref_found}); objB poses off "
         f"truth: {len(spurious['objB'])} (reference {ref_spurious}) "
         f"(frame, mm, deg): {spurious['objB']}")
-    if spurious["objA"]:
+    if ref_objA_off is not None:
+        off = tuple(sorted({f for f, _, _ in spurious["objA"]}))
+        log(f"[{label}] objA off truth (frame, mm, deg): {spurious['objA']}; the "
+            f"reference's frames off truth: {ref_objA_off}")
+        if off != tuple(ref_objA_off) or found["objA"] != B - len(ref_objA_off):
+            raise AssertionError(f"[{label}] objA off truth in frames {off}, found in "
+                                 f"{found['objA']}/{B}; the reference's off-truth frames "
+                                 f"{ref_objA_off}, found in the other {B - len(ref_objA_off)}")
+    elif spurious["objA"]:
         raise AssertionError(f"[{label}] objA poses off the ground truth (frame, mm, deg): "
                              f"{spurious['objA']}")
-    if found["objA"] < 0.9 * B:
+    elif found["objA"] < 0.9 * B:
         raise AssertionError(f"[{label}] objA found in {found['objA']}/{B} frames (< 90%)")
     if (abs(found["objB"] - ref_found) > OBJB_SLACK
             or abs(len(spurious["objB"]) - ref_spurious) > OBJB_SLACK):
@@ -877,7 +928,7 @@ def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious
         f"{[round(t, 2) for t in times]}")
 
     # card versus CPU (the twins): the match program on all frames
-    # (exact), the whole path on the first 2
+    # (exact), the whole path on the first xdev_frames
     det = pd.detector
     cpu_pd = PoseDetector(detector=det, params=pd.params, model_points=pd.model_points,
                           device="cpu")
@@ -901,9 +952,26 @@ def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious
     # the main run's first 2 frames against the same 2 on the CPU (a
     # frame's result depends on the batch size on neither: the ICP's sums
     # over points are fixed-order trees, tests/test_torch_batch_size.py)
-    got_cpu = cpu_pd.detect_fused_batch(depths[:2], K, None if rgbs is None else rgbs[:2])
+    n = xdev_frames
+    got_cpu = cpu_pd.detect_fused_batch(depths[:n], K, None if rgbs is None else rgbs[:n])
+    results = results[:n]
+    for cls in xdev_logged:
+        apart = []
+        for b, (pc, pg) in enumerate(zip(got_cpu, results)):
+            c = [p for p in pc if p.class_id == cls]
+            g = [p for p in pg if p.class_id == cls]
+            if len(c) != len(g):
+                apart.append((b, f"{len(g)} vs {len(c)} clusters"))
+            elif c:
+                dt = max(float(np.abs(a.pose[:3, 3] - q.pose[:3, 3]).max()) for a, q in zip(c, g))
+                if dt > XDEV_T_M:
+                    apart.append((b, f"{dt * 1e3:.3f} mm"))
+        log(f"[{label}] card vs cpu, {cls} (logged, not held): {len(apart)} of {n} frames "
+            f"apart by more than {XDEV_T_M * 1e3:g} mm (frame, cuda vs cpu): {apart}")
+    got_cpu = [[p for p in pc if p.class_id not in xdev_logged] for pc in got_cpu]
+    results = [[p for p in pg if p.class_id not in xdev_logged] for pg in results]
     worst_t = worst_r = 0.0
-    for b, (pc, pg) in enumerate(zip(got_cpu, results[:2])):
+    for b, (pc, pg) in enumerate(zip(got_cpu, results)):
         if [p.class_id for p in pc] != [p.class_id for p in pg]:
             raise AssertionError(f"[{label}] frame {b}: classes {[p.class_id for p in pc]} "
                                  f"(cpu) vs {[p.class_id for p in pg]} (cuda)")
@@ -913,8 +981,9 @@ def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious
     if worst_t > XDEV_T_M or worst_r > XDEV_DEG:
         raise AssertionError(f"[{label}] card vs cpu: {worst_t * 1e3:.3f} mm, "
                              f"{worst_r:.3f} deg")
-    log(f"[{label}] card vs cpu on 2 frames: same classes, max |dt| {worst_t * 1e3:.4f} mm, "
-        f"max rotation {worst_r:.4f} deg")
+    held = "" if not xdev_logged else f" but {list(xdev_logged)}"
+    log(f"[{label}] card vs cpu on {n} frames, every class{held}: same classes, max |dt| "
+        f"{worst_t * 1e3:.4f} mm, max rotation {worst_r:.4f} deg")
     return launches, batch_ms
 
 
@@ -1851,6 +1920,213 @@ def geometry_phase(dev, scenes, K, counted, gpu):
     return times
 
 
+# ----------------------------------------------------------------------
+# phase 12: the raw and one-frame forms of the detect program, the
+# modality front ends and one-frame wrappers, the windowed ICP association
+# ----------------------------------------------------------------------
+
+@contextlib.contextmanager
+def uncounted(counted):
+    """Launches inside the block do not count: each wrapper's count is put
+    back on exit (the batched comparisons of the one-frame forms)."""
+    saved = [fn.launches for fn in counted]
+    try:
+        yield
+    finally:
+        for fn, n in zip(counted, saved):
+            fn.launches = n
+
+
+def same_nan(name, got, want) -> None:
+    """Tensors or arrays bitwise equal, NaN where NaN."""
+    got, want = (torch.as_tensor(np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x))
+                 for x in (got, want))
+    (compare_planes if got.is_floating_point() else compare)(name, got, want)
+
+
+def raw_forms_checks(dev, pd, depths, rgbs, K, counted):
+    """Phase 12 a-c: raw, flat and one-frame forms of the program; the
+    front ends and one-frame kernel wrappers against their batched forms."""
+    from object_detector_6d_tpu_torch.api import detect_program as dp
+    from object_detector_6d_tpu_torch.ops import quantize, refine, response
+    from object_detector_6d_tpu_torch.quant.color_gradient import ColorGradient
+    from object_detector_6d_tpu_torch.quant.depth_normal import DepthNormal
+
+    label = "raw forms"
+    Bn, H, W = depths.shape
+    det = pd.detector
+    bank = det.get_bank()
+    bargs, views, _ = pd.bank_tensors(bank)
+    nms = pd._nms_device_args(bank, K)
+    d = torch.as_tensor(depths.astype(np.int32), device=dev)
+    bgr = torch.as_tensor(rgbs, device=dev)
+    src = [bgr if n == "ColorGradient" else d for n in det.modality_names]
+    prod, K_cap = pd.program(H, W, K)
+
+    # (a) raw and flat outputs of the batch, and the production record
+    t0 = time.time()
+    raw_prog = pd.build_program(H, W, K, batch=Bn)
+    flat_prog = pd.build_program(H, W, K, batch=Bn, flat_output=True)
+    one_prog = pd.build_program(H, W, K)
+    log(f"[{label}] three programs built in {time.time() - t0:.2f} s (the one-off cost "
+        f"of a new form: FusedScene's host f64 setup and upload)")
+    record = prod(src, bargs, views, THRESHOLD, *nms)
+    raw = raw_prog(src, bargs, views, THRESHOLD)
+    flat = flat_prog(src, bargs, views, THRESHOLD)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("packed", "poses", "res", "keep"),
+                               dp.unflatten_outputs(flat.cpu().numpy(), K_cap), raw):
+        same_nan(f"[{label}] unflatten_outputs(flat) {name} vs raw", got, want.cpu().numpy())
+    same_nan(f"[{label}] make_cluster_stage(raw) vs the production record",
+             dp.make_cluster_stage(K_cap)(*raw, nms[0], float(np.float32(nms[1])),
+                                          float(np.float32(nms[2]))), record)
+    keep = raw[3].cpu().numpy()
+    log(f"[{label}] B={Bn}: unflatten_outputs(flat) == raw; make_cluster_stage(raw) == "
+        f"the production record, bitwise; kept lanes per frame "
+        f"{keep.sum(1).tolist()}")
+
+    # (b) frame 0 through the one-frame program against row 0 of the batch
+    one = one_prog([s[0] for s in src], bargs, views, THRESHOLD)
+    same_nan(f"[{label}] one-frame packed vs batch row 0", one[0], raw[0][0])
+    same_nan(f"[{label}] one-frame keep vs batch row 0", one[3], raw[3][0])
+    k0 = keep[0]
+    p1, pb = one[1].cpu().numpy()[k0], raw[1][0].cpu().numpy()[k0]
+    dt = float(np.abs(p1[:, :3, 3] - pb[:, :3, 3]).max()) if k0.any() else 0.0
+    dr = max((rot_deg(a, b) for a, b in zip(p1[:, :3, :3], pb[:, :3, :3])), default=0.0)
+    if not k0.any() or dt > 1e-4 or dr > 0.05:
+        raise AssertionError(f"[{label}] one frame vs batch row 0: {int(k0.sum())} kept, "
+                             f"{dt * 1e3:.5f} mm, {dr:.5f} deg (bound 0.1 mm / 0.05 deg)")
+    log(f"[{label}] batch=None on frame 0 == row 0 of the batch: packed and keep equal, "
+        f"{int(k0.sum())} kept poses within {dt * 1e3:.6f} mm / {dr:.6f} deg")
+
+    # (c) the front ends and one-frame wrappers against the batched forms
+    noise = np.random.RandomState(7).randint(-24, 25, rgbs[0].shape, dtype=np.int16)
+    noisy = np.clip(rgbs[0] + noise, 0, 255).astype(np.uint8)
+    weak = det.cg_params.weak_threshold
+    cg = ColorGradient(det.cg_params, device=dev)
+    dn = DepthNormal(det.dn_params, device=dev)
+    q_cg = cg.quantize(rgbs[0])
+    q_dn = dn.quantize(depths[0])
+    q_noisy = cg.quantize(noisy)
+    with uncounted(counted):
+        same_nan(f"[{label}] ColorGradient.quantize gray", q_cg,
+                 quantize.cg_quantize_batched(bgr, weak)[0])
+        same_nan(f"[{label}] ColorGradient.quantize noisy", q_noisy,
+                 quantize.cg_quantize_batched(torch.as_tensor(noisy, device=dev)[None],
+                                              weak)[0])
+        same_nan(f"[{label}] DepthNormal.quantize", q_dn, quantize.dn_quantize_batched(
+            d, det.dn_params.distance_threshold, det.dn_params.difference_threshold)[0])
+    spreads = [(q, t) for q in (q_cg, q_dn) for t in det.t_at_level]
+    outs = [response.response_spread(q, t) for q, t in spreads]
+    with uncounted(counted):
+        for (q, t), got in zip(spreads, outs):
+            same_nan(f"[{label}] response_spread T={t}", got,
+                     response.response_spread_batched(q[None], t)[0])
+    with uncounted(counted):  # the match program's own K4 arguments for frame 0
+        Dk, plane, r0, c0, nfeat = capture_refine_args(dev, pd, depths[:1], rgbs[:1], K)[0]
+    rng = np.random.RandomState(12)
+    P, Hp, Wp = Dk.shape[1:]
+    Kc, F = plane.shape[1:]
+    rnd = [torch.as_tensor(rng.randint(0, hi, (Kc, F)), dtype=torch.int32, device=dev)
+           for hi in (P, Hp - 15, Wp - 15)]
+    s_main = refine.refine_sweep(Dk[0], plane[0], r0[0], c0[0], nfeat[0])
+    s_all = refine.refine_sweep(Dk[0], *rnd)
+    with uncounted(counted):
+        same_nan(f"[{label}] refine_sweep (main-path tables)", s_main,
+                 refine.refine_sweep_batched(Dk, plane, r0, c0, nfeat)[0])
+        same_nan(f"[{label}] refine_sweep nfeat=None", s_all, refine.refine_sweep_batched(
+            Dk[:1], *(t[None] for t in rnd), torch.full((1, Kc), F, dtype=torch.int32,
+                                                         device=dev))[0])
+        same_nan(f"[{label}] refine_sweep nfeat=None vs twin", s_all.cpu(),
+                 refine.refine_sweep_plain(Dk[:1].cpu(), *(t[None].cpu() for t in rnd),
+                                           torch.full((1, Kc), F, dtype=torch.int32))[0])
+    log(f"[{label}] ColorGradient / DepthNormal.quantize of frame 0 (gray x3 and noisy "
+        f"BGR) == row 0 of K1 / K2; response_spread at T={list(det.t_at_level)} on both "
+        f"modalities and refine_sweep (the match program's frame-0 tables, and random "
+        f"in-bounds tables with nfeat=None, F={F}) == their batched forms")
+
+
+def windowed_detect_checks(dev, pd, depths, rgbs, gts, K, counted, gpu):
+    """Phase 12 d-e: detect_fused_batch with the windowed ICP association
+    at icp_window 96 and -1 (drive_path's gates), then ms per batch at 0,
+    96 and -1 in turns, and the largest pose difference from the full
+    gather. Returns {icp_window: launches}."""
+    import dataclasses
+
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector, resolve_icp_window
+
+    H, W = depths.shape[1:]
+    pds = {}
+    launches = {}
+    results = {}
+    for iw in (0, 96, -1):
+        if iw == 0:
+            q = pd
+        else:
+            q = PoseDetector(detector=pd.detector, params=dataclasses.replace(
+                pd.params, icp_window=iw), model_points=pd.model_points, device=dev)
+            q.views = pd.views
+            size = resolve_icp_window(iw, pd.detector.get_bank(), H, W)
+            log(f"[window {iw}] resolved window: {size} px")
+            # at 96 see REF2_W96_OBJA_OFF; -1 is 248 px on this bank, where
+            # the records equal the full gather's
+            cut = iw == 96
+            launches[iw], _ = drive_path(
+                f"window {iw}", q, depths, rgbs, gts, K, counted, REF2_OBJB_FOUND,
+                REF2_OBJB_SPURIOUS, gpu, ref_objA_off=REF2_W96_OBJA_OFF if cut else None,
+                xdev_frames=len(depths) if cut else 2, xdev_logged=("objB",) if cut else ())
+        pds[iw] = q
+        results[iw] = q.detect_fused_batch(depths, K, rgbs)
+    for iw in (96, -1):
+        worst = {}  # class -> [clusters, max |dt| mm, max deg]
+        for full, win in zip(results[0], results[iw]):
+            by_key = {(p.class_id, p.template_id, p.match_x, p.match_y): p for p in full}
+            for p in win:
+                f = by_key.get((p.class_id, p.template_id, p.match_x, p.match_y))
+                if f is None:
+                    continue
+                w = worst.setdefault(p.class_id, [0, 0.0, 0.0])
+                w[0] += 1
+                w[1] = max(w[1], float(np.abs(f.pose[:3, 3] - p.pose[:3, 3]).max()) * 1e3)
+                w[2] = max(w[2], rot_deg(f.pose[:3, :3], p.pose[:3, :3]))
+        log(f"[window {iw}] against the full gather (icp_window 0), clusters with the same "
+            f"(class, template, x, y) per class (count, max |dt| mm, max deg): "
+            f"{ {c: (n, round(t, 4), round(r, 4)) for c, (n, t, r) in sorted(worst.items())} }; "
+            f"clusters {sum(map(len, results[0]))} (full) vs {sum(map(len, results[iw]))}")
+    times = {iw: [] for iw in pds}
+    for _ in range(6):  # in turns; the first round is the warm-up
+        for iw, q in pds.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q.detect_fused_batch(depths, K, rgbs)
+            torch.cuda.synchronize()
+            times[iw].append((time.perf_counter() - t0) * 1e3)
+    for iw, ts in times.items():
+        log(f"[window {iw}] time detect_fused_batch: median {statistics.median(ts[1:]):.2f} "
+            f"ms per B={len(depths)} batch (5 runs after 1 warm-up, in turns with the other "
+            f"windows; {gpu}); runs {[round(t, 2) for t in ts]}")
+    return launches
+
+
+def raw_forms_phase(dev, pd, depths, rgbs, gts, K, counted, gpu):
+    """Phase 12 on phase 3's two-modality detector and frames. Returns the
+    phase's launches per kernel wrapper (comparison launches excluded)."""
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    raw_forms_checks(dev, pd, depths, rgbs, K, counted)
+    forms = {fn.__name__: fn.launches for fn in counted}
+    log(f"[raw forms] launches of the raw / flat / one-frame programs and the one-frame "
+        f"forms: {forms}")
+    windowed = windowed_detect_checks(dev, pd, depths, rgbs, gts, K, counted, gpu)
+    total = {name: forms[name] + sum(w[name] for w in windowed.values()) for name in forms}
+    for name, n in total.items():
+        if n <= 0:
+            raise AssertionError(f"[raw forms] {name} was not launched in phase 12")
+    log(f"[raw forms] launches over the phase (the windowed main runs included): {total}")
+    return total
+
+
 def run(dev, gpu: str) -> None:
     from object_detector_6d_tpu_torch.api.detector import Detector
     from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
@@ -1918,8 +2194,13 @@ def run(dev, gpu: str) -> None:
     geometry_phase(dev, scenes, K, counted2, gpu)
     log(f"phase geometry: {time.time() - t1:.1f} s")
 
+    # phase 12: raw and one-frame forms, front ends, windowed association
+    t1 = time.time()
+    forms = raw_forms_phase(dev, pd2, depths2, rgbs2, gts2, K, counted2, gpu)
+    log(f"phase raw forms and windows: {time.time() - t1:.1f} s")
+
     for r in recs:
-        r["launches"] = launches[r["name"]] + offline[r["name"]]
+        r["launches"] = launches[r["name"]] + offline[r["name"]] + forms[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(gpu)

@@ -7,8 +7,10 @@
         -> hypothesis lift: per candidate, depth quantiles of the match
            window seed up to S translation hypotheses
         -> coarsest ICP level on all B*K*S lanes, best seed per candidate
-        -> optional survivor compaction, fine ICP levels
-        -> device pose-cluster NMS (make_cluster_stage)
+        -> optional survivor compaction, fine ICP levels (optionally
+           inside one window around each match centre, icp_window)
+        -> raw outputs (packed, poses, res, keep), flat (flatten_outputs)
+           or the device pose-cluster NMS record (make_cluster_stage)
 
 The template bank's view tensors (model clouds, anchors, bboxes, view
 poses) are packed once per bank by ``pack_views`` in the bank's global
@@ -71,6 +73,33 @@ def pack_views(bank: "mp.PackedBank", views: Dict, model_points: int,
         return torch.as_tensor(a, device=device)
 
     return PackedViews(t(models), t(anchors), t(bbox_wh), t(poses), t(ok))
+
+
+def flatten_outputs(packed, poses, res, keep, K_cap: int) -> torch.Tensor:
+    """(packed [.., 5, K+1], poses [.., K, 4, 4], res [.., K], keep
+    [.., K]) -> one f32 tensor [.., 5*(K+1) + 16K + 2K]."""
+    lead = tuple(packed.shape[:-2])
+    return torch.cat(
+        [
+            packed.reshape(lead + (5 * (K_cap + 1),)),
+            poses.reshape(lead + (16 * K_cap,)),
+            res.reshape(lead + (K_cap,)),
+            keep.to(torch.float32).reshape(lead + (K_cap,)),
+        ],
+        dim=-1,
+    )
+
+
+def unflatten_outputs(flat: np.ndarray, K_cap: int):
+    """Inverse of flatten_outputs (host side, numpy)."""
+    lead = flat.shape[:-1]
+    o = 5 * (K_cap + 1)
+    packed = flat[..., :o].reshape(lead + (5, K_cap + 1))
+    poses = flat[..., o:o + 16 * K_cap].reshape(lead + (K_cap, 4, 4))
+    o += 16 * K_cap
+    res = flat[..., o:o + K_cap]
+    keep = flat[..., o + K_cap:o + 2 * K_cap] > 0
+    return packed, poses, res, keep
 
 
 CLUSTER_SLOT = 24  # per-cluster f32 record width (see make_cluster_stage)
@@ -258,23 +287,47 @@ def make_detect_program(
     num_seeds: int = 3,
     seed_min_gap: float = 0.015,
     min_inlier_frac: float = 0.25,
+    batch: Optional[int] = None,
+    flat_output: bool = False,
+    device_nms: bool = False,
     fine_compact: int = 0,
     lift_impl: str = "hist",
+    icp_window: int = 0,
     device="cuda",
 ):
-    """Build the batched detect program for one (frame shape, K) pair.
+    """Build the detect program for one (frame shape, K) pair.
 
-    Returns ``run(sources, bank_args, views, threshold, cls_of_tid [nT],
-    max_residual, trans_thr) -> [B, K*CLUSTER_SLOT+2]`` f32: the device
-    cluster-NMS record of make_cluster_stage. ``sources`` holds one batch
-    per modality, in ``modality_names`` order; geometry reads the first
-    one that is not ColorGradient (the depth). ``bank_args`` is a
-    match.program.BankArgs on the same device.
+    Returns ``run(sources, bank_args, views, threshold, *nms_args)``.
+    ``sources`` holds one source per modality, in ``modality_names``
+    order; geometry reads the first one that is not ColorGradient (the
+    depth). ``bank_args`` is a match.program.BankArgs on the same device.
+
+    With ``batch=None`` the sources are one frame ([H, W] depth, [H, W, 3]
+    u8 BGR) and the outputs have no leading axis; with an int ``batch``
+    they are [batch, ...] and any other leading size raises; ``batch=-1``
+    takes [B, ...] sources of any B (nothing in the program depends on B,
+    so PoseDetector caches one such program for every batch size). Outputs:
+
+    - default: ``(packed [.., 5, K+1], poses [.., K, 4, 4] f32, res [.., K]
+      f32, keep [.., K] bool)``; ``poses`` compose the template's
+      training-view pose (model -> scene camera);
+    - ``flat_output=True``: the same as one f32 tensor per frame
+      (flatten_outputs / unflatten_outputs);
+    - ``device_nms=True``: the device cluster-NMS record of
+      make_cluster_stage, [.., K*CLUSTER_SLOT+2] f32; ``nms_args`` are
+      then ``(cls_of_tid [nT], max_residual, trans_thr)``.
+
+    ``icp_window`` > 0 runs the fine ICP phase inside one [icp_window,
+    icp_window] window of the scene around each surviving candidate's
+    match centre (refine/projective.py ``_associate_window``); the
+    coarse phase keeps the full gather. 0 keeps it everywhere.
     """
     if lift_impl not in ("hist", "sort"):
         raise ValueError(f"lift_impl {lift_impl!r}")
     icp = icp or ICPParams(iterations=100)
     H, W = frame_shape
+    if icp_window > min(H, W):
+        raise ValueError(f"icp_window {icp_window} exceeds the {H}x{W} frame")
     K_cap = max_candidates
     S = num_seeds
     K_mat = np.asarray(K_mat, np.float64)
@@ -306,10 +359,11 @@ def make_detect_program(
     # the projective update-norm early exit (not icp.tolerance; see the
     # reference's note)
     proj_tol = 3e-4
-    cluster_stage = make_cluster_stage(K_cap)
+    cluster_stage = make_cluster_stage(K_cap) if device_nms else None
 
     def lift(z_img, packed, views: PackedViews):
-        """[B, 5, K+1] match arrays -> ICP-ready hypotheses."""
+        """[B, 5, K+1] match arrays -> ICP-ready hypotheses and the fine
+        phase's window origins [B, K]."""
         B = packed.shape[0]
         xs = packed[:, 0, :-1].to(torch.int64)
         ys = packed[:, 1, :-1].to(torch.int64)
@@ -362,17 +416,27 @@ def make_detect_program(
         models = views.model_bank[tids]  # [B, K, N, 6]
         n_model_valid = torch.clamp(
             torch.isfinite(models[..., 0]).sum(-1).to(torch.float32), min=1.0)
-        return tids, keep, seed_ok, pose0, models, n_model_valid
+        # fine-phase window origins (icp_window > 0), clamped into the frame
+        wy0 = torch.clamp(cy_i - icp_window // 2, 0, max(H - icp_window, 0))
+        wx0 = torch.clamp(cx_i - icp_window // 2, 0, max(W - icp_window, 0))
+        return tids, keep, seed_ok, pose0, models, n_model_valid, wy0, wx0
 
-    def icp_run(scenes, scene_of_lane, models, poses, levels, iters_l):
+    def icp_run(scenes, scene_of_lane, models, poses, levels, iters_l, window=None):
         return icp_levels(models, poses, scenes, scene_of_lane, fx, fy, cx, cy,
                           H, W, levels=levels, iters_per_level=iters_l,
-                          tolerance=proj_tol, solves=n_solves)
+                          tolerance=proj_tol, solves=n_solves, window=window)
+
+    def fine_window(wy0, wx0):
+        """The fine lanes' windows from their [B, M] origins, or None."""
+        if icp_window <= 0:
+            return None
+        return wy0.reshape(-1), wx0.reshape(-1), icp_window
 
     def lift_and_refine(z_img, scenes, packed, views: PackedViews):
         B = packed.shape[0]
         dv = packed.device
-        tids, keep, seed_ok, pose0, models, n_model_valid = lift(z_img, packed, views)
+        tids, keep, seed_ok, pose0, models, n_model_valid, wy0, wx0 = lift(
+            z_img, packed, views)
         N = models.shape[2]
         # phase 1: the coarsest level on every (frame, candidate, seed) lane
         flat_models = models[:, :, None].expand(B, K_cap, S, N, 6).reshape(-1, N, 6)
@@ -396,14 +460,17 @@ def make_detect_program(
         if fine_levels:
             # survivor compaction: the M_fine best candidates by coarse
             # residual (stable: lane order breaks ties) run the fine levels;
-            # the rest drop like coarse failures
+            # the rest drop like coarse failures (with M_fine == K_cap, sel
+            # only reorders independent lanes). A lane's window follows its
+            # sel entry.
             rank = torch.where(torch.isfinite(best_res), best_res, float("inf"))
             sel = torch.argsort(rank, dim=1, stable=True)[:, :M_fine]  # [B, M]
             m_sel = torch.gather(models, 1, sel[..., None, None].expand(B, M_fine, N, 6))
             p_sel = torch.gather(best_pose, 1, sel[..., None, None].expand(B, M_fine, 4, 4))
             res2, poses2, nin2 = icp_run(
                 scenes, frame_of.repeat_interleave(M_fine), m_sel.reshape(-1, N, 6),
-                p_sel.reshape(-1, 4, 4), fine_levels, fine_iters)
+                p_sel.reshape(-1, 4, 4), fine_levels, fine_iters,
+                fine_window(torch.gather(wy0, 1, sel), torch.gather(wx0, 1, sel)))
             res2 = res2.reshape(B, M_fine)
             nin2 = nin2.reshape(B, M_fine)
             nmv_sel = torch.gather(n_model_valid, 1, sel)
@@ -421,9 +488,23 @@ def make_detect_program(
         final = nan_watch(final, "detect.poses", mask=keep_out[..., None, None])
         return final, best_res, keep_out
 
+    def check_sources(sources):
+        """The sources as [B, ...] batches, after checking their leading
+        axes against ``batch``."""
+        if batch is None:
+            if sources[depth_idx].dim() != 2:
+                raise ValueError(f"a one-frame program takes an [H, W] depth, got "
+                                 f"{tuple(sources[depth_idx].shape)}")
+            return [s[None] for s in sources]
+        for s in sources:
+            if batch != -1 and s.shape[0] != batch:
+                raise ValueError(f"a program for batch={batch} got a source of "
+                                 f"shape {tuple(s.shape)}")
+        return sources
+
     @torch.no_grad()
-    def run(sources, bank_args, views: PackedViews, threshold, cls_of_tid,
-            max_residual, trans_thr):
+    def run(sources, bank_args, views: PackedViews, threshold, *nms_args):
+        sources = check_sources(sources)
         depths = sources[depth_idx]
         # named spans for torch.profiler traces (no cost without a profiler)
         with record_function("detect.match"):
@@ -434,10 +515,21 @@ def make_detect_program(
             scenes = planes_to_scene8(planes)
         with record_function("detect.lift_icp"):
             poses, res, keep = lift_and_refine(z_img, scenes, packed, views)
-        with record_function("detect.cluster"):
-            return cluster_stage(packed, poses, res, keep, cls_of_tid,
-                                 float(np.float32(max_residual)),
-                                 float(np.float32(trans_thr)))
+        if device_nms:
+            cls_of_tid, max_residual, trans_thr = nms_args
+            with record_function("detect.cluster"):
+                out = cluster_stage(packed, poses, res, keep, cls_of_tid,
+                                    float(np.float32(max_residual)),
+                                    float(np.float32(trans_thr)))
+        elif nms_args:
+            raise TypeError("the NMS arguments are taken only with device_nms=True")
+        elif flat_output:
+            out = flatten_outputs(packed, poses, res, keep, K_cap)
+        else:
+            out = (packed, poses, res, keep)
+        if batch is None:
+            return out[0] if isinstance(out, torch.Tensor) else tuple(o[0] for o in out)
+        return out
 
     run.match_program = match_prog
     run.fused_scene = fscene

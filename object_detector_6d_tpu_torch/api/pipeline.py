@@ -206,25 +206,38 @@ class PoseDetector:
         return self.detect_fused_finalize(
             self.detect_fused_dispatch(depths, K, rgbs, class_ids, match_threshold))
 
-    def program(self, H: int, W: int, K):
+    def program(self, H: int, W: int, K, bank=None):
         """The fused detect program for (H, W, K) on this detector's device
-        (cached) and its candidate capacity."""
+        (cached; it takes a batch of any size and returns the device NMS
+        record) and its candidate capacity. ``bank`` sizes the automatic
+        ICP window (``resolve_icp_window``); the detector's full bank when
+        None."""
         p = self.params
         kb = np.ascontiguousarray(np.asarray(K, np.float64)).tobytes()
         K_cap = max(8, p.max_hypotheses)
+        icp_window = resolve_icp_window(
+            p.icp_window, self.detector.get_bank() if bank is None else bank, H, W)
         key = ("prog", (H, W), kb, K_cap, p.fine_compact, self.lift_impl,
-               p.icp, p.num_seeds)
+               p.icp, p.num_seeds, icp_window)
         prog = self._cache.get(key)
         if prog is None:
-            prog = dp.make_detect_program(
-                self.detector.modality_names, self.detector.t_at_level, (H, W),
-                self.detector.dn_params, self.detector.cg_params,
-                np.asarray(K, np.float64),
-                max_candidates=K_cap, icp=p.icp, lift_window=self.scene_window,
-                num_seeds=p.num_seeds, fine_compact=p.fine_compact,
-                lift_impl=self.lift_impl, device=self.device)
+            prog = self.build_program(H, W, K, batch=-1, device_nms=True,
+                                      icp_window=icp_window)
             self._cache[key] = prog
         return prog, K_cap
+
+    def build_program(self, H: int, W: int, K, **forms):
+        """A new (uncached) detect program with this detector's settings
+        on its device, in the form ``forms`` selects (make_detect_program's
+        batch / flat_output / device_nms / icp_window)."""
+        p = self.params
+        return dp.make_detect_program(
+            self.detector.modality_names, self.detector.t_at_level, (H, W),
+            self.detector.dn_params, self.detector.cg_params, np.asarray(K, np.float64),
+            max_candidates=max(8, p.max_hypotheses), icp=p.icp,
+            lift_window=self.scene_window, num_seeds=p.num_seeds,
+            fine_compact=p.fine_compact, lift_impl=self.lift_impl, device=self.device,
+            **forms)
 
     def bank_tensors(self, bank):
         """The bank's arrays (match.program.BankArgs), packed views and
@@ -279,7 +292,7 @@ class PoseDetector:
         bank = self.detector.get_bank(class_ids)
         if bank is None:
             return ("empty", B)
-        prog, K_cap = self.program(H, W, K)
+        prog, K_cap = self.program(H, W, K, bank)
         bargs, views, _ = self.bank_tensors(bank)
         flat = prog(sources, bargs, views, threshold, *self._nms_device_args(bank, K))
         return (flat, B, K_cap, bank, *frames, K, class_ids, match_threshold)
@@ -291,6 +304,7 @@ class PoseDetector:
         H, W, 3] u8 BGR) back to back: G runs of the cached program, queued
         on the card before any result is read (the reference scans them
         inside one execution). A throughput shape, not a low-latency one.
+        Each run resolves ``icp_window`` as detect_fused_dispatch does.
         Finalize with :meth:`detect_fused_finalize_multi`."""
         G, B = depths_g.shape[:2]
         if self.detector.get_bank(class_ids) is None:
@@ -466,6 +480,17 @@ class PoseDetector:
             out, translation_threshold=p.nms_radius_px / float(intr.fx))
         self.counters.inc("detections", len(clusters))
         return [c.mean_pose() for c in clusters]
+
+
+def resolve_icp_window(icp_window: int, bank, H: int, W: int) -> int:
+    """DetectParams.icp_window as the program takes it: -1 sizes the
+    window from the bank's largest level-0 template side plus a 64 px
+    pose-drift margin, rounded up to 8 and held to 96..256 px, then to the
+    frame; any other value is returned as it is."""
+    if icp_window >= 0:
+        return icp_window
+    mb = int(np.max(bank.sizes[0])) if len(bank.sizes[0]) else 0
+    return min(min(256, max(96, -(-(mb + 64) // 8) * 8)), H, W)
 
 
 def _host(a) -> np.ndarray:

@@ -144,12 +144,3 @@ class DetectParams:
     # latency-bound gather it replaces. Kept as an opt-in: the
     # formulation wins only if the window is small (<= ~128 px).
     icp_window: int = 0
-
-    def __post_init__(self):
-        # the windowed association is a TPU-MXU formulation that the
-        # reference ships off; this package carries only the row gather
-        if self.icp_window != 0:
-            raise ValueError(
-                f"icp_window={self.icp_window}: the windowed ICP association "
-                "is not part of this package; use icp_window=0"
-            )

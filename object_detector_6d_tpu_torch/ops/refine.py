@@ -1,6 +1,7 @@
 """The two sparse sweeps of the match program: kernels K4 and K6 and
 their plain twins (port of object_detector_6d_tpu/ops/refine_pallas.py
-``refine_sweep_batched`` and ``coarse_sweep``).
+``refine_sweep_batched``, its one-frame form ``refine_sweep``, and
+``coarse_sweep``).
 
 K4, the 16x16 local refinement at level 0:
 
@@ -86,6 +87,17 @@ def refine_sweep_batched(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
 
 
 refine_sweep_batched.launches = 0
+
+
+def refine_sweep(d_planes, plane_idx, r0, c0, nfeat=None) -> torch.Tensor:
+    """One frame: D [P, Hp, Wp], tables [K, F] -> [K, 16, 16] int32;
+    ``nfeat`` [K] defaults to all F features (its launch counts on
+    ``refine_sweep_batched``)."""
+    if nfeat is None:
+        nfeat = torch.full((plane_idx.shape[0],), plane_idx.shape[1], dtype=torch.int32,
+                           device=plane_idx.device)
+    return refine_sweep_batched(d_planes[None], plane_idx[None], r0[None], c0[None],
+                                nfeat[None])[0]
 
 
 def coarse_sweep_plain(d_planes, plane_idx, dr, dc, nfeat, out_h: int,

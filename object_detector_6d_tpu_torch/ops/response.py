@@ -1,5 +1,6 @@
 """Fused spread + response maps: kernel K3 and its plain twin (port of
-object_detector_6d_tpu/ops/response_pallas.py ``response_spread_batched``).
+object_detector_6d_tpu/ops/response_pallas.py ``response_spread_batched``
+and its one-frame form ``response_spread``).
 
 [B, H, W] u8 quantized orientations -> [B, 8, H, W] u8 response maps
 (values 0..4), equal to ``response_maps(spread(q, t))`` of
@@ -44,3 +45,9 @@ def response_spread_batched(q: torch.Tensor, t: int) -> torch.Tensor:
 
 
 response_spread_batched.launches = 0
+
+
+def response_spread(q: torch.Tensor, t: int) -> torch.Tensor:
+    """One frame: [H, W] u8 -> [8, H, W] u8 (its launch counts on
+    ``response_spread_batched``)."""
+    return response_spread_batched(q[None], t)[0]

@@ -19,6 +19,7 @@ division of two tensors. This is the plain version the K1 kernel
 (ops/quantize.py, csrc/cg_quantize.cu) is held against. The training
 side (quant/pyramid.py) takes the one-hot image from K1's wrapper (this
 twin for a CPU image) and the magnitude from ``selected_magnitude``.
+``ColorGradient`` is the modality's front end: one frame through K1.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from object_detector_6d_tpu_torch.core.config import ColorGradientParams
+from object_detector_6d_tpu_torch.core.device import on_device
 
 _GAUSS7 = (8, 28, 56, 72, 56, 28, 8)
 # cv::fastAtan2's coefficients in degrees, as float32 (csrc/cg_quantize.cu
@@ -149,3 +153,21 @@ def quantized_orientations(bgr: torch.Tensor, weak_threshold: float = 10.0
     strong = (smag > weak2) & (best_votes >= 5) & ~border
     q = torch.where(strong, torch.ones_like(best) << best, 0).to(torch.uint8)
     return q, smag
+
+
+class ColorGradient:
+    """Color-gradient modality front end (mirrors linemod::ColorGradient)."""
+
+    name = "ColorGradient"
+
+    def __init__(self, params: ColorGradientParams | None = None, device="cuda"):
+        self.params = params or ColorGradientParams()
+        self.device = device
+
+    def quantize(self, bgr) -> torch.Tensor:
+        """[H, W, 3] u8 BGR -> [H, W] u8 one-hot orientations, through K1
+        at B=1; numpy goes to ``device``, a tensor stays on its own."""
+        from object_detector_6d_tpu_torch.ops.quantize import cg_quantize_batched
+
+        img = on_device(bgr, self.device)
+        return cg_quantize_batched(img[None], float(self.params.weak_threshold))[0]

@@ -11,13 +11,17 @@ operation, in the reference's order; float -> int conversion truncates.
 
 This is the plain version the K2 kernel (ops/quantize.py,
 csrc/dn_quantize.cu) is held against, and the quantizer the training
-side (quant/pyramid.py) uses.
+side (quant/pyramid.py) uses. ``DepthNormal`` is the modality's front
+end: one frame through K2.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from object_detector_6d_tpu_torch.core.config import DepthNormalParams
+from object_detector_6d_tpu_torch.core.device import on_device
 from object_detector_6d_tpu_torch.ops.median import median5_onehot_u8
 
 _RING_RADIUS = 5
@@ -123,3 +127,25 @@ def quantized_normals(
     q = torch.where(valid, q, 0).to(torch.uint8)
     out = median5_onehot_u8(q)
     return out[0] if single else out
+
+
+class DepthNormal:
+    """Depth-normal modality front end (mirrors linemod::DepthNormal)."""
+
+    name = "DepthNormal"
+
+    def __init__(self, params: DepthNormalParams | None = None, device="cuda"):
+        self.params = params or DepthNormalParams()
+        self.device = device
+
+    def quantize(self, depth_u16) -> torch.Tensor:
+        """[H, W] raw depth (any int dtype) -> [H, W] u8 quantized normals,
+        through K2 at B=1; numpy (widened to the int32 K2 reads) goes to
+        ``device``, a tensor stays on its own."""
+        from object_detector_6d_tpu_torch.ops.quantize import dn_quantize_batched
+
+        if not isinstance(depth_u16, torch.Tensor):
+            depth_u16 = np.asarray(depth_u16).astype(np.int32)
+        d = on_device(depth_u16, self.device)
+        return dn_quantize_batched(d[None], int(self.params.distance_threshold),
+                                   int(self.params.difference_threshold))[0]

@@ -11,7 +11,9 @@ an unrolled, Levenberg-damped 6x6 Cholesky.
 Everything is written once for a leading lane axis L (the reference
 ``vmap``s a single-lane function). Scenes are [S, H*W, C] packed rows
 [x, y, z, nx, ny, nz, valid, ...]; ``scene_of_lane`` [L] picks each
-lane's scene.
+lane's scene. An optional per-lane window ``(wy0 [L], wx0 [L], iw)``
+limits the correspondences to each lane's [iw, iw] crop of its scene
+(the reference's windowed association, ``_associate_window``).
 
 The reference's ``lax.while_loop`` ends each lane on its own: the step
 whose twist-update norm falls below ``tolerance`` is applied, then the
@@ -70,8 +72,10 @@ def _chol_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _associate(pose, model_pc, mask, scenes, scene_of_lane, fx, fy, cx, cy,
-               H, W, max_corr_dist, min_normal_cos):
-    """Projective data association for [L] lanes of [n] model rows.
+               H, W, max_corr_dist, min_normal_cos, window=None):
+    """Projective data association for [L] lanes of [n] model rows; with
+    ``window`` = (wy0 [L], wx0 [L], iw), only inside each lane's window
+    (``_associate_window``).
 
     Returns scene points [L, n, 3], normals [L, n, 3] and weights [L, n]."""
     mp = SE3.apply(pose, model_pc[..., :3])
@@ -87,6 +91,8 @@ def _associate(pose, model_pc, mask, scenes, scene_of_lane, fx, fy, cx, cy,
     HW = scenes.shape[1]
     rows = scenes.reshape(-1, scenes.shape[-1])
     q = rows[scene_of_lane[:, None] * HW + pix]  # [L, n, C]
+    if window is not None:
+        inb, q = _associate_window(u, v, inb, q, window)
     qp = q[..., :3]
     qn = q[..., 3:6]
     d2 = torch.sum((mp - qp) ** 2, dim=-1)
@@ -94,6 +100,28 @@ def _associate(pose, model_pc, mask, scenes, scene_of_lane, fx, fy, cx, cy,
     w = (mask & inb & (q[..., 6] > 0) & (d2 <= max_corr_dist * max_corr_dist)
          & (ncos >= min_normal_cos)).to(torch.float32)
     return qp, qn, w
+
+
+def _associate_window(u, v, inb, q, window):
+    """The reference's windowed association on the row gather: a model
+    point whose pixel (u, v) [L, n] lies outside its lane's [iw, iw]
+    window at (wy0, wx0) [L] gets weight 0 (``inb`` [L, n] cleared) and a
+    zero scene row (``q`` [L, n, C]).
+
+    The reference crops the window from the packed scene and gathers
+    from the crop with two one-hot contractions at HIGHEST precision.
+    That equals this masked row gather exactly: the crop's origin is
+    clamped into the frame, so an in-window pixel is in the frame and its
+    crop entry is the scene row at (v, u); each contraction output is one
+    product 1.0 * value plus products 0.0 * value, which are zero because
+    the scene holds no NaN or infinity (planes_to_scene8 applies
+    nan_to_num); and a point outside the window, or behind the camera,
+    gets an all-zero one-hot row, so a zero scene row."""
+    wy0, wx0, iw = window
+    du = u - wx0[:, None]
+    dv = v - wy0[:, None]
+    inb = inb & (du >= 0) & (du < iw) & (dv >= 0) & (dv < iw)
+    return inb, torch.where(inb[..., None], q, torch.zeros_like(q))
 
 
 def _gn_solve(pose, model_pc, qp, qn, w):
@@ -117,12 +145,13 @@ def _gn_solve(pose, model_pc, qp, qn, w):
 
 
 def _proj_step(pose, model_pc, mask, scenes, scene_of_lane, fx, fy, cx, cy,
-               H, W, max_corr_dist, min_normal_cos, solves: int = 1):
-    """Associate once, then ``solves`` Gauss-Newton updates on the fixed
-    pairs; the residual returned is the last solve's, the update norm the
-    sum over solves."""
+               H, W, max_corr_dist, min_normal_cos, solves: int = 1, window=None):
+    """Associate once (inside ``window`` when given), then ``solves``
+    Gauss-Newton updates on the fixed pairs; the residual returned is the
+    last solve's, the update norm the sum over solves."""
     qp, qn, w = _associate(pose, model_pc, mask, scenes, scene_of_lane,
-                           fx, fy, cx, cy, H, W, max_corr_dist, min_normal_cos)
+                           fx, fy, cx, cy, H, W, max_corr_dist, min_normal_cos,
+                           window)
     new_pose, upd, residual = _gn_solve(pose, model_pc, qp, qn, w)
     for _ in range(solves - 1):
         new_pose, upd2, residual = _gn_solve(new_pose, model_pc, qp, qn, w)
@@ -144,9 +173,12 @@ def icp_levels(
     corr_dist_base: float = 0.015,
     min_normal_cos: float = 0.5,
     solves: int = 1,
+    window=None,  # (wy0 [L], wx0 [L], iw): the windowed association
 ):
     """Run the given pyramid levels on every lane; returns (residual [L],
-    pose [L, 4, 4], n_inliers [L])."""
+    pose [L, 4, 4], n_inliers [L]). With ``window``, every association
+    keeps only the correspondences inside each lane's [iw, iw] window at
+    (wy0, wx0) (``_associate_window``)."""
     Ln, N = model_pc.shape[0], model_pc.shape[1]
     dev = model_pc.device
     pose = pose0
@@ -166,7 +198,7 @@ def icp_levels(
             active = upd >= tolerance
             new_pose, new_upd, res, nin = _proj_step(
                 pose, sample, mask, scenes, scene_of_lane, fx, fy, cx, cy,
-                H, W, cap, min_normal_cos, solves=solves)
+                H, W, cap, min_normal_cos, solves=solves, window=window)
             pose = torch.where(active[:, None, None], new_pose, pose)
             residual = torch.where(active, res, residual)
             n_in = torch.where(active, nin, n_in)

@@ -10,22 +10,45 @@ import numpy as np
 import pytest
 import torch
 
+from object_detector_6d_tpu.api import detect_program as ref_detect_program
 from object_detector_6d_tpu.api.detector import Detector as RefDetector
 from object_detector_6d_tpu.api.pipeline import PoseDetector as RefPoseDetector
 from object_detector_6d_tpu.api.streaming import StreamingDetector as RefStreamingDetector
+from object_detector_6d_tpu.ops import refine_pallas as ref_refine_pallas
+from object_detector_6d_tpu.ops import response_pallas as ref_response_pallas
+from object_detector_6d_tpu.quant.color_gradient import ColorGradient as RefColorGradient
+from object_detector_6d_tpu.quant.depth_normal import DepthNormal as RefDepthNormal
 from object_detector_6d_tpu.refine.icp import ICP as RefICP
+from object_detector_6d_tpu_torch.api import detect_program
 from object_detector_6d_tpu_torch.api.detector import Detector
 from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
 from object_detector_6d_tpu_torch.api.streaming import StreamingDetector
+from object_detector_6d_tpu_torch.core.config import DetectParams
+from object_detector_6d_tpu_torch.io.convert import (
+    detector_dict,
+    params_dict,
+    pose_detector_from_state,
+)
+from object_detector_6d_tpu_torch.ops import refine, response
+from object_detector_6d_tpu_torch.quant.color_gradient import ColorGradient
+from object_detector_6d_tpu_torch.quant.depth_normal import DepthNormal
 from object_detector_6d_tpu_torch.refine.icp import ICP
 
 # reference parameters the port does not take yet, and why
 ABSENT = {
     ("PoseDetector.__init__", "mesh"):
         "sharding over a device mesh: ROADMAP queue 1 item 19",
+    ("make_detect_program", "mesh"): "the same",
+    ("make_detect_program", "max_dr"):
+        "sizes the conv path's dense bank tensors; the port's sparse tables take any offset",
+    ("make_detect_program", "refine_impl"): "TPU-only choice of the refine kernel",
+    ("make_detect_program", "pallas_interpret"): "TPU-only: the port's twins run on the CPU",
+    ("response_spread", "interpret"): "the same",
+    ("refine_sweep", "interpret"): "the same",
 }
 PORT_ONLY = {("PoseDetector.__init__", "device"), ("Detector.match", "device"),
-             ("ICP.from_params", "device")}
+             ("ICP.from_params", "device"), ("make_detect_program", "device"),
+             ("ColorGradient.__init__", "device"), ("DepthNormal.__init__", "device")}
 
 CALLABLES = {
     "Detector.__init__": (RefDetector.__init__, Detector.__init__),
@@ -53,6 +76,14 @@ CALLABLES = {
     "StreamingDetector.process": (RefStreamingDetector.process, StreamingDetector.process),
     "StreamingDetector.process_host": (RefStreamingDetector.process_host,
                                        StreamingDetector.process_host),
+    "make_detect_program": (ref_detect_program.make_detect_program,
+                            detect_program.make_detect_program),
+    "ColorGradient.__init__": (RefColorGradient.__init__, ColorGradient.__init__),
+    "ColorGradient.quantize": (RefColorGradient.quantize, ColorGradient.quantize),
+    "DepthNormal.__init__": (RefDepthNormal.__init__, DepthNormal.__init__),
+    "DepthNormal.quantize": (RefDepthNormal.quantize, DepthNormal.quantize),
+    "response_spread": (ref_response_pallas.response_spread, response.response_spread),
+    "refine_sweep": (ref_refine_pallas.refine_sweep.__wrapped__, refine.refine_sweep),
 }
 
 
@@ -99,9 +130,9 @@ def test_pose_detector_defaults_to_the_card():
 
 @pytest.mark.parametrize("name", ["PoseDetector.__init__", "pose_detector_from_state",
                                   "make_detect_program", "pack_views", "FusedScene.__init__",
-                                  "Detector.match", "ICP.from_params"])
+                                  "Detector.match", "ICP.from_params",
+                                  "ColorGradient.__init__", "DepthNormal.__init__"])
 def test_entry_points_default_to_the_card(name):
-    from object_detector_6d_tpu_torch.api import detect_program
     from object_detector_6d_tpu_torch.io import convert
     from object_detector_6d_tpu_torch.ops import geometry
 
@@ -110,8 +141,35 @@ def test_entry_points_default_to_the_card(name):
           "make_detect_program": detect_program.make_detect_program,
           "pack_views": detect_program.pack_views,
           "FusedScene.__init__": geometry.FusedScene.__init__,
-          "Detector.match": Detector.match, "ICP.from_params": ICP.from_params}[name]
+          "Detector.match": Detector.match, "ICP.from_params": ICP.from_params,
+          "ColorGradient.__init__": ColorGradient.__init__,
+          "DepthNormal.__init__": DepthNormal.__init__}[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("icp_window", [96, -1])
+def test_icp_window_builds_and_carries_over(icp_window):
+    """The windowed ICP association is no longer rejected: DetectParams
+    takes it, and params_dict hands it to a port detector."""
+    from object_detector_6d_tpu.core.config import DetectParams as RefDetectParams
+
+    for params in (DetectParams(icp_window=icp_window), RefDetectParams(icp_window=icp_window)):
+        assert params.icp_window == icp_window
+        assert params_dict(params)["icp_window"] == icp_window
+        pd = pose_detector_from_state(detector_dict(Detector(modalities=("DepthNormal",))),
+                                      {}, {}, params_dict(params), device="cpu")
+        assert pd.params == DetectParams(icp_window=icp_window)
+
+
+def test_front_ends_raise_without_a_card():
+    """ColorGradient / DepthNormal on the default device do not carry on
+    on the CPU for numpy input."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ColorGradient().quantize(np.zeros((16, 16, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        DepthNormal().quantize(np.zeros((16, 16), np.uint16))
 
 
 def test_default_device_detect_raises_without_a_card():
