@@ -146,6 +146,24 @@ Phases (each raises on failure, so the script exits non-zero):
               sit at the residual gate (its frames apart are logged)
    e. times   ms per batch at icp_window 0, 96 and -1, in turns; K1-K6
               launches of the phase, added to the kernels line
+13. sharded (parallel/sharding.py), on phase 3's detector and frames:
+   a. one     PoseDetector(mesh=make_mesh(1)) in this process over nccl (a
+              real process group of one: the mesh path and its collectives
+              with nothing to merge): every kernel launched, the flat NMS
+              record equal to the unsharded one bitwise on all 32 frames
+   b. two     two spawned processes sharing the card over gloo (NCCL
+              refuses two ranks on one card), mesh (1, 2), each building
+              PoseDetector(mesh=) from pose_detector_from_state: every
+              kernel launched on each rank; the match record [B, 5, K+1]
+              equal to the unsharded one bitwise; every class but objB
+              within 0.1 mm / 0.05 deg of the unsharded poses on all 32
+              frames (ROADMAP queue 3 item 2: lanes split across ranks
+              change the card's ICP sums in their last bits), objB's frames
+              apart logged; K6 at a rank's template shard (61 of 122
+              templates) equal to its twin
+   c. times   ms per batch, unsharded and world of one in turns, and each
+              rank of the world of two (the ranks start each run together);
+              launches per rank added to the kernels line
 
 The two-modality workload is bench.py's: the snowman objA and its
 0.78-scale objB trained with the port's add_view (rgb = the gray view x3)
@@ -157,7 +175,8 @@ depth-only workload has 130 depth-only distractors instead (13 classes x
 10, 63 / 31 features). Frames and templates come from fixed numpy seeds.
 
 The line before the last is {"kernels": [...]}: every kernel with its
-launches on the two-modality main path plus those of phases 10 and 12,
+launches on the two-modality main path plus those of phases 10, 12 and
+13,
 its largest difference from its twin, its time beside the twin's, its
 bound (the larger of its bytes over the card's memory rate and its
 operations over the peak rate for their type, from this run's inputs;
@@ -180,6 +199,7 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import socket
 import statistics
 import subprocess
 import sys
@@ -2127,6 +2147,249 @@ def raw_forms_phase(dev, pd, depths, rgbs, gts, K, counted, gpu):
     return total
 
 
+# ----------------------------------------------------------------------
+# phase 13: sharded (parallel/sharding.py) on phase 3's detector and
+# frames: PoseDetector(mesh=) in a world of one (nccl, in this process) and
+# in a world of two (spawned processes, gloo, both on the one card)
+# ----------------------------------------------------------------------
+
+# ROADMAP.md queue 3 item 2: lanes split across ranks change the card's ICP
+# sums in their last bits; objB's hypotheses on objA's body sit at the
+# residual gate, so objB is logged, not held
+SHARD_T_M = 1e-4
+SHARD_DEG = 0.05
+SHARD_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def pd_state(pd):
+    """A PoseDetector's trained state, as pose_detector_from_state takes it."""
+    from object_detector_6d_tpu_torch.io.convert import detector_dict, params_dict
+
+    templates = {cid: [[(t.width, t.height, t.pyramid_level, t.feature_array()) for t in tp]
+                       for tp in tps]
+                 for cid, tps in pd.detector.class_templates.items()}
+    views = {k: dict(model_cloud=v.model_cloud, bbox=v.bbox, anchor_point=v.anchor_point,
+                     view_pose=v.view_pose)
+             for k, v in pd.views.items()}
+    return detector_dict(pd.detector), templates, views, params_dict(pd.params)
+
+
+def counted_wrappers():
+    from object_detector_6d_tpu_torch.ops import geometry, quantize, refine, response
+
+    return (quantize.cg_quantize_batched, quantize.dn_quantize_batched,
+            response.response_spread_batched, refine.coarse_sweep,
+            refine.refine_sweep_batched, geometry.FusedScene)
+
+
+def counted_run(counted, fn):
+    """fn() with every wrapper's count from 0; returns (fn's result, counts)."""
+    for w in counted:
+        w.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {w.__name__: w.launches for w in counted}
+
+
+def batch_times(pd, depths, K, rgbs, runs: int = 6, barrier=None):
+    """ms of ``runs`` detect_fused_batch calls (the first is the warm-up)."""
+    times = []
+    for _ in range(runs):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd.detect_fused_batch(depths, K, rgbs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def pose_fields(results):
+    return [[(p.class_id, p.template_id, p.pose, p.residual) for p in poses]
+            for poses in results]
+
+
+def world_of_one(dev, pd, depths, rgbs, K, gpu):
+    """PoseDetector(mesh=make_mesh(1)) in this process over nccl: the
+    sharded code path with its real collectives and nothing to merge; its
+    flat NMS record equals the unsharded one bitwise. Returns its launches."""
+    import torch.distributed as dist
+
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+    from object_detector_6d_tpu_torch.parallel.sharding import make_mesh
+
+    label = "sharded, world of one"
+    counted = counted_wrappers()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, device=dev)
+        pd1 = PoseDetector(detector=pd.detector, params=pd.params, model_points=pd.model_points,
+                           mesh=mesh, device=dev)
+        pd1.views = pd.views
+        pd1.detect_fused_batch(depths[:2], K, rgbs[:2])  # the bank on the card
+        handle, launches = counted_run(counted, lambda: pd1.detect_fused_dispatch(depths, K, rgbs))
+        log(f"[{label}] main path launches: {launches}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"[{label}] {name} was not launched by the main path")
+        if not any(k[0] == "prog" and k[-2] is mesh for k in pd1._cache):
+            raise AssertionError(f"[{label}] the batch did not take the sharded program")
+        same_nan(f"[{label}] flat NMS record vs the unsharded one", handle[0],
+                 pd.detect_fused_dispatch(depths, K, rgbs)[0])
+        log(f"[{label}] flat NMS record [{len(depths)}, {handle[0].shape[-1]}] equal to the "
+            "unsharded one, bitwise, on every frame")
+        times = {"unsharded": [], "world of one": []}
+        for _ in range(6):  # in turns; the first round is the warm-up
+            times["unsharded"] += batch_times(pd, depths, K, rgbs, runs=1)
+            times["world of one"] += batch_times(pd1, depths, K, rgbs, runs=1)
+        for name, ts in times.items():
+            log(f"[{label}] time detect_fused_batch {name}: median "
+                f"{statistics.median(ts[1:]):.2f} ms per B={len(depths)} batch (5 runs after "
+                f"1 warm-up, in turns; {gpu}); runs {[round(t, 2) for t in ts]}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def sharded_rank(rank, port, dev, state, frames, K, out_path):
+    """One rank of the world of two (spawned; gloo; both ranks on ``dev``):
+    PoseDetector(mesh=make_mesh(2)) from the parent's trained state, its
+    launches on the main path, its match record, K6 at its template
+    shard's shape against the twin, ms per batch; saved to ``out_path``."""
+    import torch.distributed as dist
+
+    from object_detector_6d_tpu_torch.io.convert import pose_detector_from_state
+    from object_detector_6d_tpu_torch.ops import refine
+    from object_detector_6d_tpu_torch.parallel.sharding import make_mesh
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        mesh = make_mesh(2, device=dev)
+        mi = mesh.get_local_rank("model")
+        pd = pose_detector_from_state(*state, model_points=512, mesh=mesh, device=dev)
+        depths, rgbs = frames
+        H, W = depths.shape[1:]
+        pd.detect_fused_batch(depths[:2], K, rgbs[:2])  # the bank on the card
+        counted = counted_wrappers()
+        results, launches = counted_run(counted, lambda: pd.detect_fused_batch(depths, K, rgbs))
+        bank = pd.detector.get_bank(pad_to=2)
+        prog, _ = pd.program(H, W, K, bank, mesh)
+        sources = [torch.as_tensor(rgbs, device=dev) if n == "ColorGradient" else
+                   torch.as_tensor(depths.astype(np.int32), device=dev)
+                   for n in pd.detector.modality_names]
+        with torch.no_grad():
+            match = prog.match_program(sources, *pd.bank_tensors(bank)[0],
+                                       pd.params.match_threshold).cpu()
+        # K6 at this rank's shape on the main path: every frame, one shard
+        D, tables, gh, gw = coarse_main_inputs(dev, pd, rgbs, depths)
+        n_local = tables[0].shape[0] // 2
+        shard = tuple(t[mi * n_local:(mi + 1) * n_local] for t in tables)
+        k6_err = compare(f"K6 at the template shard {tuple(D.shape)} x {n_local} templates",
+                         refine.coarse_sweep(D, *shard, gh, gw),
+                         refine.coarse_sweep_plain(D, *shard, gh, gw))
+        times = batch_times(pd, depths, K, rgbs, barrier=dist.barrier)
+        torch.save(dict(launches=launches, poses=pose_fields(results), match=match,
+                        k6=(tuple(D.shape), n_local, k6_err), times=times,
+                        programs=[k[-2] is mesh for k in pd._cache if k[0] == "prog"]),
+                   out_path.format(rank=rank))
+    finally:
+        dist.destroy_process_group()
+
+
+def world_of_two(dev, pd, depths, rgbs, K, gpu):
+    """The world of two against the unsharded detector: the match record
+    bitwise, every class but objB within SHARD_T_M / SHARD_DEG on every
+    frame (objB's frames apart are logged). Returns the launches per rank."""
+    label = "sharded, world of two"
+    out_dir = ROOT / "build" / "chip_smoke_sharded"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.pt"):
+        f.unlink()
+    out_path = str(out_dir / "rank{rank}.pt")
+    ctx = torch.multiprocessing.start_processes(
+        sharded_rank, args=(free_port(), dev, pd_state(pd), (depths, rgbs), K, out_path),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.time() + SHARD_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.time() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"[{label}] the world did not finish in {SHARD_TIMEOUT_S} s")
+    ranks = [torch.load(out_path.format(rank=r), weights_only=False) for r in range(2)]
+
+    H, W = depths.shape[1:]
+    bank = pd.detector.get_bank()
+    sources = [torch.as_tensor(rgbs, device=dev) if n == "ColorGradient" else
+               torch.as_tensor(depths.astype(np.int32), device=dev)
+               for n in pd.detector.modality_names]
+    with torch.no_grad():
+        match = pd.program(H, W, K)[0].match_program(
+            sources, *pd.bank_tensors(bank)[0], pd.params.match_threshold).cpu()
+    want = pose_fields(pd.detect_fused_batch(depths, K, rgbs))
+    for r, got in enumerate(ranks):
+        log(f"[{label}] rank {r} main path launches: {got['launches']}")
+        for name, n in got["launches"].items():
+            if n <= 0:
+                raise AssertionError(f"[{label}] rank {r}: {name} was not launched")
+        if got["programs"] != [True]:
+            raise AssertionError(f"[{label}] rank {r}: programs built {got['programs']}")
+        same_nan(f"[{label}] rank {r} match record vs the unsharded one", got["match"], match)
+        shape, n_local, err = got["k6"]
+        log(f"[{label}] rank {r}: K6 at D {shape} x {n_local} templates == its twin "
+            f"(max abs err {err})")
+        worst_t = worst_r = 0.0
+        objb_apart = []
+        for b, (g, w) in enumerate(zip(got["poses"], want)):
+            gb = [p for p in g if p[0] == "objB"]
+            wb = [p for p in w if p[0] == "objB"]
+            if ([p[:2] for p in gb] != [p[:2] for p in wb] or any(
+                    np.abs(p[2][:3, 3] - q[2][:3, 3]).max() > SHARD_T_M
+                    or rot_deg(p[2][:3, :3], q[2][:3, :3]) > SHARD_DEG for p, q in zip(gb, wb))):
+                objb_apart.append(b)
+            g = [p for p in g if p[0] != "objB"]
+            w = [p for p in w if p[0] != "objB"]
+            if [p[:2] for p in g] != [p[:2] for p in w]:
+                raise AssertionError(f"[{label}] rank {r} frame {b}: {[p[:2] for p in g]} vs "
+                                     f"the unsharded {[p[:2] for p in w]}")
+            for p, q in zip(g, w):
+                worst_t = max(worst_t, float(np.abs(p[2][:3, 3] - q[2][:3, 3]).max()))
+                worst_r = max(worst_r, rot_deg(p[2][:3, :3], q[2][:3, :3]))
+        if worst_t > SHARD_T_M or worst_r > SHARD_DEG:
+            raise AssertionError(f"[{label}] rank {r}: poses {worst_t * 1e3:.4f} mm, "
+                                 f"{worst_r:.4f} deg from the unsharded ones")
+        log(f"[{label}] rank {r}: match record [{len(depths)}, 5, "
+            f"{match.shape[-1]}] equal to the unsharded one, bitwise; every class but objB "
+            f"on all {len(depths)} frames: same classes and templates, max |dt| "
+            f"{worst_t * 1e3:.4f} mm, max rotation {worst_r:.4f} deg; objB differs "
+            f"(count, template or beyond {SHARD_T_M * 1e3:g} mm / {SHARD_DEG:g} deg) in "
+            f"{len(objb_apart)} frames: {objb_apart}")
+        ts = got["times"]
+        log(f"[{label}] rank {r} time detect_fused_batch: median "
+            f"{statistics.median(ts[1:]):.2f} ms per B={len(depths)} batch (5 runs after 1 "
+            f"warm-up, the ranks started together; {gpu}); runs {[round(t, 2) for t in ts]}")
+    return [got["launches"] for got in ranks]
+
+
+def sharded_phase(dev, pd, depths, rgbs, K, gpu):
+    """Phase 13. Returns the launches per kernel wrapper over its main runs
+    (the world of one and both ranks of the world of two)."""
+    one = world_of_one(dev, pd, depths, rgbs, K, gpu)
+    two = world_of_two(dev, pd, depths, rgbs, K, gpu)
+    return {name: one[name] + sum(r[name] for r in two) for name in one}
+
+
 def run(dev, gpu: str) -> None:
     from object_detector_6d_tpu_torch.api.detector import Detector
     from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
@@ -2199,8 +2462,14 @@ def run(dev, gpu: str) -> None:
     forms = raw_forms_phase(dev, pd2, depths2, rgbs2, gts2, K, counted2, gpu)
     log(f"phase raw forms and windows: {time.time() - t1:.1f} s")
 
+    # phase 13: sharded, worlds of one and two
+    t1 = time.time()
+    sharded = sharded_phase(dev, pd2, depths2, rgbs2, K, gpu)
+    log(f"phase sharded: {time.time() - t1:.1f} s; launches {sharded}")
+
     for r in recs:
-        r["launches"] = launches[r["name"]] + offline[r["name"]] + forms[r["name"]]
+        r["launches"] = (launches[r["name"]] + offline[r["name"]] + forms[r["name"]]
+                         + sharded[r["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(gpu)

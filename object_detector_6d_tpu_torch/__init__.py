@@ -64,10 +64,15 @@ detect path (on the given device as well):
     utils/debug.py (checked, nan_watch), utils/profiling.py (scope,
     trace_to, DeviceTimer)
 
+Template-bank / hypothesis / frame sharding over a torch.distributed
+device mesh (``parallel``): one process per rank, each building the same
+detector; ``make_mesh`` gives the (data, model) mesh that
+``PoseDetector(mesh=)`` and ``make_detect_program(mesh=)`` take.
+
 The package imports ``torch`` and numpy, never ``jax`` nor the
 reference package. The names below, the reference's public surface and
-this list's entry points, load their modules at first use. What is still
-to port is listed in ROADMAP.md.
+this list's entry points, load their modules at first use. Every module
+of the reference has its counterpart here.
 """
 
 import importlib
@@ -110,6 +115,8 @@ _EXPORTS = {
     "RgbdICPOdometry": "odometry.odometry",
     "FastICPOdometry": "odometry.odometry",
     "PPFDetector": "ppf.detector",
+    "make_mesh": "parallel.sharding",
+    "mesh_shape": "parallel.sharding",
 }
 
 __all__ = ["__version__", *_EXPORTS]

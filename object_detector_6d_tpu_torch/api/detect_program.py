@@ -1,5 +1,6 @@
 """Fused frame-batched detect: match -> geometry -> lift -> ICP -> NMS
-(port of object_detector_6d_tpu/api/detect_program.py, single device).
+(port of object_detector_6d_tpu/api/detect_program.py), on one device or
+sharded over a (data, model) device mesh.
 
     sources (one batch per modality: [B, H, W, 3] u8 BGR, [B, H, W] depth)
         -> match program (match/program.py, top-K candidates)
@@ -29,6 +30,7 @@ from object_detector_6d_tpu_torch.core.config import ICPParams
 from object_detector_6d_tpu_torch.core.se3 import SE3
 from object_detector_6d_tpu_torch.match import program as mp
 from object_detector_6d_tpu_torch.ops.geometry import FusedScene, planes_to_scene8
+from object_detector_6d_tpu_torch.parallel.sharding import all_gather_cat, axis_size
 from object_detector_6d_tpu_torch.refine.projective import icp_levels
 from object_detector_6d_tpu_torch.utils.debug import nan_watch
 
@@ -288,6 +290,7 @@ def make_detect_program(
     seed_min_gap: float = 0.015,
     min_inlier_frac: float = 0.25,
     batch: Optional[int] = None,
+    mesh=None,
     flat_output: bool = False,
     device_nms: bool = False,
     fine_compact: int = 0,
@@ -321,6 +324,16 @@ def make_detect_program(
     icp_window] window of the scene around each surviving candidate's
     match centre (refine/projective.py ``_associate_window``); the
     coarse phase keeps the full gather. 0 keeps it everywhere.
+
+    With ``mesh`` (a 2D (data, model) DeviceMesh, parallel/sharding.py
+    make_mesh) the same program shards: frames over ``data``, the template
+    bank over ``model`` in the match stage, and each frame's ICP hypothesis
+    lanes over ``model`` in the refine stage. Every rank is given the whole
+    batch and bank and returns the whole output, equal to the unsharded
+    program's. It needs a batch (B divisible by the data axis), and
+    ``max_candidates``, ``max_candidates * num_seeds`` and a compacting
+    ``fine_compact`` divisible by the model axis, and a bank whose size
+    divides by it (pack_bank's ``pad_to``).
     """
     if lift_impl not in ("hist", "sort"):
         raise ValueError(f"lift_impl {lift_impl!r}")
@@ -338,7 +351,7 @@ def make_detect_program(
     qlevels = torch.tensor([0.25, 0.5, 0.75][:S], dtype=torch.float32, device=dev)
     depth_idx = next(i for i, n in enumerate(modality_names) if n != "ColorGradient")
     match_prog = mp.make_match_program(modality_names, t_at_level, frame_shape,
-                                       dn_params, cg_params, max_candidates)
+                                       dn_params, cg_params, max_candidates, mesh)
     fscene = FusedScene(H, W, K_mat, device=dev)
 
     all_levels = list(range(icp.num_levels - 1, -1, -1))
@@ -349,6 +362,17 @@ def make_detect_program(
     else:
         coarse_levels, fine_levels = all_levels, []
     M_fine = fine_compact if (0 < fine_compact < K_cap) else K_cap
+    if mesh is not None:
+        dp, tp = axis_size(mesh, "data"), axis_size(mesh, "model")
+        di, mi = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+        if batch is None or (batch > 0 and batch % dp):
+            raise ValueError(f"a sharded program needs a batch divisible by the mesh's "
+                             f"data axis ({batch} vs {dp})")
+        if (K_cap * S) % tp or K_cap % tp:
+            raise ValueError(f"max_candidates ({K_cap}) and max_candidates*num_seeds "
+                             f"({K_cap * S}) must divide the model axis ({tp})")
+        if M_fine < K_cap and M_fine % tp:
+            raise ValueError(f"fine_compact ({M_fine}) must divide the model axis ({tp})")
     n_solves = max(1, icp.solves_per_assoc)
     iters = max(1, icp.iterations // icp.num_levels // n_solves)
     fine_iters = [
@@ -421,29 +445,40 @@ def make_detect_program(
         wx0 = torch.clamp(cx_i - icp_window // 2, 0, max(W - icp_window, 0))
         return tids, keep, seed_ok, pose0, models, n_model_valid, wy0, wx0
 
-    def icp_run(scenes, scene_of_lane, models, poses, levels, iters_l, window=None):
-        return icp_levels(models, poses, scenes, scene_of_lane, fx, fy, cx, cy,
-                          H, W, levels=levels, iters_per_level=iters_l,
-                          tolerance=proj_tol, solves=n_solves, window=window)
+    def icp_lanes(scenes, levels, iters_l, models, poses, wy0=None, wx0=None):
+        """ICP of lanes [B, L] (models [B, L, N, 6], start poses [B, L, 4,
+        4]; window origins [B, L] in the fine phase) against their frames'
+        scenes -> (res [B, L], poses [B, L, 4, 4], n_inliers [B, L])."""
+        B, L, N = models.shape[:3]
+        frame_of = torch.arange(B, device=models.device).repeat_interleave(L)
+        window = (None if wy0 is None or icp_window <= 0
+                  else (wy0.reshape(-1), wx0.reshape(-1), icp_window))
+        res, poses, nin = icp_levels(
+            models.reshape(-1, N, 6), poses.reshape(-1, 4, 4), scenes, frame_of,
+            fx, fy, cx, cy, H, W, levels=levels, iters_per_level=iters_l,
+            tolerance=proj_tol, solves=n_solves, window=window)
+        return res.reshape(B, L), poses.reshape(B, L, 4, 4), nin.reshape(B, L)
 
-    def fine_window(wy0, wx0):
-        """The fine lanes' windows from their [B, M] origins, or None."""
-        if icp_window <= 0:
-            return None
-        return wy0.reshape(-1), wx0.reshape(-1), icp_window
+    def spread_lanes(scenes, levels, iters_l, *lanes):
+        """``icp_lanes`` on one device, or under a mesh on this rank's
+        contiguous L/tp lanes of every frame, gathered over the model axis."""
+        if mesh is None:
+            return icp_lanes(scenes, levels, iters_l, *lanes)
+        part = lanes[0].shape[1] // tp
+        mine = slice(mi * part, (mi + 1) * part)
+        out = icp_lanes(scenes, levels, iters_l, *(a[:, mine] for a in lanes))
+        return tuple(all_gather_cat(o, mesh, "model", dim=1) for o in out)
 
     def lift_and_refine(z_img, scenes, packed, views: PackedViews):
         B = packed.shape[0]
-        dv = packed.device
         tids, keep, seed_ok, pose0, models, n_model_valid, wy0, wx0 = lift(
             z_img, packed, views)
         N = models.shape[2]
         # phase 1: the coarsest level on every (frame, candidate, seed) lane
-        flat_models = models[:, :, None].expand(B, K_cap, S, N, 6).reshape(-1, N, 6)
-        frame_of = torch.arange(B, device=dv)
-        res1, poses1, nin1 = icp_run(
-            scenes, frame_of.repeat_interleave(K_cap * S), flat_models,
-            pose0.reshape(-1, 4, 4), coarse_levels, iters)
+        res1, poses1, nin1 = spread_lanes(
+            scenes, coarse_levels, iters,
+            models[:, :, None].expand(B, K_cap, S, N, 6).reshape(B, K_cap * S, N, 6),
+            pose0.reshape(B, K_cap * S, 4, 4))
         res1 = res1.reshape(B, K_cap, S)
         nin1 = nin1.reshape(B, K_cap, S)
         poses1 = poses1.reshape(B, K_cap, S, 4, 4)
@@ -461,26 +496,24 @@ def make_detect_program(
             # survivor compaction: the M_fine best candidates by coarse
             # residual (stable: lane order breaks ties) run the fine levels;
             # the rest drop like coarse failures (with M_fine == K_cap, sel
-            # only reorders independent lanes). A lane's window follows its
-            # sel entry.
+            # only reorders independent lanes; so it serves the reference's
+            # branch without compaction too). A lane's window follows its sel
+            # entry. Under a mesh every rank computes the same sel from the
+            # gathered residuals and refines its share of it.
             rank = torch.where(torch.isfinite(best_res), best_res, float("inf"))
             sel = torch.argsort(rank, dim=1, stable=True)[:, :M_fine]  # [B, M]
             m_sel = torch.gather(models, 1, sel[..., None, None].expand(B, M_fine, N, 6))
             p_sel = torch.gather(best_pose, 1, sel[..., None, None].expand(B, M_fine, 4, 4))
-            res2, poses2, nin2 = icp_run(
-                scenes, frame_of.repeat_interleave(M_fine), m_sel.reshape(-1, N, 6),
-                p_sel.reshape(-1, 4, 4), fine_levels, fine_iters,
-                fine_window(torch.gather(wy0, 1, sel), torch.gather(wx0, 1, sel)))
-            res2 = res2.reshape(B, M_fine)
-            nin2 = nin2.reshape(B, M_fine)
+            res2, poses2, nin2 = spread_lanes(
+                scenes, fine_levels, fine_iters, m_sel, p_sel,
+                torch.gather(wy0, 1, sel), torch.gather(wx0, 1, sel))
             nmv_sel = torch.gather(n_model_valid, 1, sel)
             enough2 = nin2 >= min_inlier_frac * nmv_sel
             res_f = torch.where(torch.isfinite(torch.gather(best_res, 1, sel)) & enough2,
                                 res2, float("inf"))
             best_res = torch.full_like(best_res, float("inf")).scatter(1, sel, res_f)
             best_pose = best_pose.scatter(
-                1, sel[..., None, None].expand(B, M_fine, 4, 4),
-                poses2.reshape(B, M_fine, 4, 4))
+                1, sel[..., None, None].expand(B, M_fine, 4, 4), poses2)
         final = torch.matmul(best_pose, views.view_poses[tids])
         keep_out = keep & torch.isfinite(best_res)
         # debug mode only (no sync otherwise): NaN in a KEPT pose is a bug,
@@ -502,13 +535,31 @@ def make_detect_program(
                                  f"shape {tuple(s.shape)}")
         return sources
 
+    def frame_shard(sources):
+        """Under a mesh: this rank's contiguous share of the frames."""
+        if mesh is None:
+            return sources
+        bl = sources[0].shape[0] // dp
+        return [s[di * bl:(di + 1) * bl] for s in sources]
+
+    def gather_frames(out):
+        """Under a mesh: every rank's frames of each output, in frame order."""
+        if mesh is None:
+            return out
+        if isinstance(out, torch.Tensor):
+            return all_gather_cat(out, mesh, "data")
+        return tuple(all_gather_cat(o, mesh, "data") for o in out)
+
     @torch.no_grad()
     def run(sources, bank_args, views: PackedViews, threshold, *nms_args):
         sources = check_sources(sources)
-        depths = sources[depth_idx]
         # named spans for torch.profiler traces (no cost without a profiler)
         with record_function("detect.match"):
-            packed = match_prog(sources, *bank_args, threshold)
+            if mesh is None:
+                packed = match_prog(sources, *bank_args, threshold)
+            else:  # this rank's frames, merged over the model axis
+                packed = match_prog.local(sources, *bank_args, threshold)[:, :5]
+        depths = frame_shard(sources)[depth_idx]
         with record_function("detect.geometry"):
             planes = fscene(depths)  # [B, 8, H, W]
             z_img = planes[:, 2]
@@ -527,6 +578,7 @@ def make_detect_program(
             out = flatten_outputs(packed, poses, res, keep, K_cap)
         else:
             out = (packed, poses, res, keep)
+        out = gather_frames(out)
         if batch is None:
             return out[0] if isinstance(out, torch.Tensor) else tuple(o[0] for o in out)
         return out

@@ -203,11 +203,12 @@ class Detector:
         names, t_at_level, cg, dn = yaml_store.parse_detector_doc(doc)
         return cls(names, t_at_level, cg, dn)
 
-    def get_bank(self, class_ids: Optional[Sequence[str]] = None):
+    def get_bank(self, class_ids: Optional[Sequence[str]] = None, pad_to: int = 1):
         """Packed global template bank (cached; invalidated by _store).
-        None when no selected class has templates."""
+        None when no selected class has templates. ``pad_to``: round the
+        bank up to a multiple (template-axis sharding over a mesh)."""
         key = tuple(sorted(class_ids)) if class_ids else None
-        bank = self._bank_cache.get(key)
+        bank = self._bank_cache.get((key, pad_to))
         if bank is None:
             selected = {
                 cid: tps for cid, tps in self.class_templates.items()
@@ -217,8 +218,8 @@ class Detector:
                 return None
             bank = mp.pack_bank(selected, len(self.modality_names),
                                 self.pyramid_levels, t0=self.t_at_level[0],
-                                t1=self.t_at_level[1])
-            self._bank_cache[key] = bank
+                                t1=self.t_at_level[1], pad_to=pad_to)
+            self._bank_cache[(key, pad_to)] = bank
         return bank
 
     # largest candidate capacity of the fused match program

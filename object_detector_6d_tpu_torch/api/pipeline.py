@@ -32,6 +32,12 @@ best seed per match -> residual gate -> pose-cluster NMS on the host.
 ``device`` defaults to the card ("cuda"); ``device="cpu"`` asks for the
 plain twins on the host. Without a card, a detect call on the default
 device raises: it never carries on on the CPU.
+
+With ``mesh`` (parallel/sharding.make_mesh; every rank builds the same
+PoseDetector and makes the same calls) ``detect_fused_batch`` shards the
+whole fused program over it, frames over ``data``, the template bank and
+the ICP hypothesis lanes over ``model``, for batches of more than one
+frame that divide the data axis; other batches run unsharded on each rank.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from object_detector_6d_tpu_torch.core.intrinsics import Intrinsics
 from object_detector_6d_tpu_torch.geom.backproject import depth_to_3d
 from object_detector_6d_tpu_torch.geom.normals import normals_fals
 from object_detector_6d_tpu_torch.match import program as mp
+from object_detector_6d_tpu_torch.parallel.sharding import axis_size
 from object_detector_6d_tpu_torch.refine.icp import (
     ICP,
     _nanmedian,
@@ -112,9 +119,12 @@ class PoseDetector:
         model_points: int = 1024,
         scene_window: int = 160,
         scene_points_stride: int = 2,
+        mesh=None,
         lift_impl: str = "hist",
         device="cuda",
     ):
+        """``mesh``: an optional 2D (data, model) DeviceMesh on ``device``'s
+        type (parallel/sharding.make_mesh), see the module's docstring."""
         self.detector = detector or Detector()
         self.params = params or DetectParams()
         self.model_points = model_points
@@ -122,6 +132,10 @@ class PoseDetector:
         self.scene_stride = scene_points_stride
         self.lift_impl = lift_impl
         self.device = torch.device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type!r} devices for a detector on "
+                             f"{self.device}")
+        self.mesh = mesh
         self.views: Dict[Tuple[str, int], _ViewRecord] = {}
         self.counters = PipelineCounters()
         self._cache: Dict[tuple, object] = {}
@@ -206,38 +220,46 @@ class PoseDetector:
         return self.detect_fused_finalize(
             self.detect_fused_dispatch(depths, K, rgbs, class_ids, match_threshold))
 
-    def program(self, H: int, W: int, K, bank=None):
+    def program(self, H: int, W: int, K, bank=None, mesh=None):
         """The fused detect program for (H, W, K) on this detector's device
-        (cached; it takes a batch of any size and returns the device NMS
-        record) and its candidate capacity. ``bank`` sizes the automatic
-        ICP window (``resolve_icp_window``); the detector's full bank when
-        None."""
+        (cached; it takes a batch of any size, a multiple of the data axis
+        under ``mesh``, and returns the device NMS record) and its candidate
+        capacity. ``bank`` sizes the automatic ICP window
+        (``resolve_icp_window``); the detector's full bank when None."""
         p = self.params
         kb = np.ascontiguousarray(np.asarray(K, np.float64)).tobytes()
-        K_cap = max(8, p.max_hypotheses)
+        K_cap, fine_compact = self._capacities(mesh)
         icp_window = resolve_icp_window(
             p.icp_window, self.detector.get_bank() if bank is None else bank, H, W)
-        key = ("prog", (H, W), kb, K_cap, p.fine_compact, self.lift_impl,
-               p.icp, p.num_seeds, icp_window)
+        key = ("prog", (H, W), kb, K_cap, fine_compact, self.lift_impl,
+               p.icp, p.num_seeds, mesh, icp_window)
         prog = self._cache.get(key)
         if prog is None:
             prog = self.build_program(H, W, K, batch=-1, device_nms=True,
-                                      icp_window=icp_window)
+                                      icp_window=icp_window, mesh=mesh)
             self._cache[key] = prog
         return prog, K_cap
 
     def build_program(self, H: int, W: int, K, **forms):
         """A new (uncached) detect program with this detector's settings
         on its device, in the form ``forms`` selects (make_detect_program's
-        batch / flat_output / device_nms / icp_window)."""
+        batch / mesh / flat_output / device_nms / icp_window)."""
         p = self.params
+        K_cap, fine_compact = self._capacities(forms.get("mesh"))
         return dp.make_detect_program(
             self.detector.modality_names, self.detector.t_at_level, (H, W),
             self.detector.dn_params, self.detector.cg_params, np.asarray(K, np.float64),
-            max_candidates=max(8, p.max_hypotheses), icp=p.icp,
+            max_candidates=K_cap, icp=p.icp,
             lift_window=self.scene_window, num_seeds=p.num_seeds,
-            fine_compact=p.fine_compact, lift_impl=self.lift_impl, device=self.device,
+            fine_compact=fine_compact, lift_impl=self.lift_impl, device=self.device,
             **forms)
+
+    def _capacities(self, mesh):
+        """(max_candidates, fine_compact) of the program: under a mesh both
+        rounded up to multiples of its model axis, as the reference does."""
+        p = self.params
+        tp = 1 if mesh is None else axis_size(mesh, "model")
+        return -(-max(8, p.max_hypotheses) // tp) * tp, -(-p.fine_compact // tp) * tp
 
     def bank_tensors(self, bank):
         """The bank's arrays (match.program.BankArgs), packed views and
@@ -289,10 +311,16 @@ class PoseDetector:
         B, H, W = d.shape
         p = self.params
         threshold = p.match_threshold if match_threshold is None else match_threshold
-        bank = self.detector.get_bank(class_ids)
+        # the mesh's rules: shard a batch of more than one frame that divides
+        # the data axis, with a bank padded to the model axis
+        mesh = self.mesh
+        if mesh is not None and (B == 1 or B % axis_size(mesh, "data")):
+            mesh = None
+        tp = 1 if mesh is None else axis_size(mesh, "model")
+        bank = self.detector.get_bank(class_ids, pad_to=tp)
         if bank is None:
             return ("empty", B)
-        prog, K_cap = self.program(H, W, K, bank)
+        prog, K_cap = self.program(H, W, K, bank, mesh)
         bargs, views, _ = self.bank_tensors(bank)
         flat = prog(sources, bargs, views, threshold, *self._nms_device_args(bank, K))
         return (flat, B, K_cap, bank, *frames, K, class_ids, match_threshold)

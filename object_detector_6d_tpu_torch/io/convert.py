@@ -49,10 +49,12 @@ def pose_detector_from_state(
     views: Dict[Tuple[str, int], Mapping],
     params,
     model_points: int = 1024,
+    mesh=None,
     device="cuda",
 ) -> PoseDetector:
     """A PoseDetector holding the given detector configuration, templates
-    and views."""
+    and views (sharded over ``mesh`` when one is given: every rank builds
+    it from the same state)."""
     det = Detector(
         modalities=tuple(detector["modalities"]),
         t_at_level=tuple(detector["t_at_level"]),
@@ -68,7 +70,7 @@ def pose_detector_from_state(
                                     for x, y, lbl in feats]))
             det.add_synthetic_template(tp, cid)
     pd = PoseDetector(detector=det, params=_params(params),
-                      model_points=model_points, device=device)
+                      model_points=model_points, mesh=mesh, device=device)
     for (cid, tid), rec in views.items():
         vp = rec.get("view_pose")
         pd.views[(cid, int(tid))] = _ViewRecord(

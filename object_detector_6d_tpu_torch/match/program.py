@@ -14,7 +14,10 @@ object_detector_6d_tpu/match/program.py), one or two modalities.
 
 Rows of the output: x, y, similarity, global template id, keep; the last
 column carries the frame's count of above-threshold coarse candidates
-(overflow when > K). Same semantics, tie orders and integer paddings as
+(overflow when > K). Under a device mesh (parallel/sharding.py) each rank
+runs the same path on its frames and its template shard, with a sixth row,
+the raw coarse score, by which ``merge_shard_candidates`` re-ranks the
+shards' candidates. Same semantics, tie orders and integer paddings as
 the reference: K6's raw grid equals the reference main path's int8 conv
 over its one-hot ``kernels_low``, and ``build_D`` pads to the reference's
 Hp2/Wp2, so tile indices are identical.
@@ -31,6 +34,8 @@ import torch
 from object_detector_6d_tpu_torch.ops.quantize import cg_quantize_batched, dn_quantize_batched
 from object_detector_6d_tpu_torch.ops.refine import coarse_sweep, refine_sweep_batched
 from object_detector_6d_tpu_torch.ops.response import response_spread_batched
+from object_detector_6d_tpu_torch.parallel.sharding import all_gather_cat, axis_size
+from object_detector_6d_tpu_torch.quant.features import Template
 from object_detector_6d_tpu_torch.quant.pyramid import pyr_down_u8
 
 
@@ -91,9 +96,15 @@ def _sparse_tables(feats, t: int):
 
 def pack_bank(
     class_templates: Dict[str, list], num_mod: int, levels: int, t0: int = 5,
-    t1: int = 8,
+    t1: int = 8, pad_to: int = 1,
 ) -> PackedBank:
-    """Concatenate every class's template pyramids into one bank."""
+    """Concatenate every class's template pyramids into one bank.
+
+    ``pad_to``: round the bank size up to a multiple (template-axis
+    sharding over a mesh). Padding templates (class id "", local id -1)
+    have no features, so their raw coarse score is 0 and the strict
+    > threshold rule (raw threshold >= 0) never makes them candidates.
+    """
     class_ids: List[str] = []
     local_tids: List[int] = []
     all_tps = []
@@ -102,6 +113,11 @@ def pack_bank(
             class_ids.append(cid)
             local_tids.append(i)
             all_tps.append(tp)
+    while pad_to > 1 and len(all_tps) % pad_to:
+        class_ids.append("")
+        local_tids.append(-1)
+        all_tps.append([Template(0, 0, lvl, []) for lvl in range(levels)
+                        for _ in range(num_mod)])
     nT = len(all_tps)
     nfeat: List[np.ndarray] = []
     sizes: List[np.ndarray] = []
@@ -188,6 +204,7 @@ def make_match_program(
     dn_params,
     cg_params,
     max_candidates: int = 64,
+    mesh=None,
 ):
     """Build the frame-batched matcher.
 
@@ -195,6 +212,15 @@ def make_match_program(
     sizes_l0, sizes_l1, threshold) -> [B, 5, K+1] f32`` where ``sources``
     holds one batch per modality: [B, H, W, 3] u8 BGR for ColorGradient,
     [B, H, W] depth for DepthNormal (the rest is a BankArgs).
+
+    With ``mesh`` (parallel/sharding.make_mesh) every rank is given the
+    whole batch and bank and returns the whole [B, 5, K+1]: it matches its
+    contiguous frame shard (the data axis) against its contiguous template
+    shard (the model axis), the model axis merges the candidates
+    (``merge_shard_candidates``) and the data axis gathers the frames. B
+    must divide by the data axis and the bank size by the model axis
+    (pack_bank's ``pad_to``). ``run.local`` returns only this rank's
+    frames, merged, with the raw score row: [B/dp, 6, K+1].
     """
     levels = len(t_at_level)
     if levels != 2:
@@ -256,7 +282,7 @@ def make_match_program(
         rc = top_idx % (gh * gw)
         xs = (rc % gw) * t1 + off1
         ys = (rc // gw) * t1 + off1
-        return tids, valid, n_above, xs, ys
+        return tids, valid, n_above, xs, ys, top_vals
 
     def anchors_stage(tids, xs, ys, sizes_l0):
         border = 8 * t0
@@ -272,7 +298,11 @@ def make_match_program(
         D = decimate(R.view(torch.int8), t0, Hd, Wd)
         return torch.nn.functional.pad(D, (0, Wp2 - Wd, 0, Hp2 - Hd))
 
-    def post_stage(total16, tids, valid, n_above, x2, y2, nfeat_l0, threshold):
+    def post_stage(total16, tids, valid, n_above, x2, y2, nfeat_l0, threshold,
+                   raw_vals, tid_offset):
+        """[B, 6, K+1]: row 5 carries the raw coarse score, by which a
+        sharded caller re-ranks the shards' top-Ks as the flat top-K did;
+        ``tid_offset`` relabels a template shard's ids to global ids."""
         B = total16.shape[0]
         nf0 = nfeat_l0[tids].to(torch.float32)
         pct16 = total16 * 100.0 / (4.0 * nf0[:, :, None, None])
@@ -285,18 +315,21 @@ def make_match_program(
         ny = (y2 // t0 - 8 + best_r) * t0 + off0
         keep = valid & (best >= threshold)
         packed = torch.stack([nx.to(torch.float32), ny.to(torch.float32), best,
-                              tids.to(torch.float32), keep.to(torch.float32)],
-                             dim=1)  # [B, 5, K]
-        n_col = n_above.to(torch.float32)[:, None, None].expand(B, 5, 1)
+                              (tids + tid_offset).to(torch.float32),
+                              keep.to(torch.float32), raw_vals.to(torch.float32)],
+                             dim=1)  # [B, 6, K]
+        n_col = n_above.to(torch.float32)[:, None, None].expand(B, 6, 1)
         return torch.cat([packed, n_col], dim=2)
 
-    def run(sources, coarse_tables, feat_arrays, nfeat_l0, nfeat_l1, sizes_l0,
-            sizes_l1, threshold):
+    def core(sources, coarse_tables, feat_arrays, nfeat_l0, nfeat_l1, sizes_l0,
+             sizes_l1, threshold, tid_offset=0):
+        """The whole path on the given frames and (part of the) bank ->
+        [B, 6, K+1]."""
         if len(sources) != num_mod:
             raise ValueError(f"{len(sources)} sources for modalities {tuple(modality_names)}")
         threshold = float(np.float32(threshold))
         R0_b, R1_b = compute_responses(sources)
-        tids, valid, n_above, xs, ys = coarse_stage(
+        tids, valid, n_above, xs, ys, raw_vals = coarse_stage(
             R1_b, coarse_tables, nfeat_l1, sizes_l1, threshold)
         x2, y2, base_c, base_r = anchors_stage(tids, xs, ys, sizes_l0)
         feat_plane, feat_dr, feat_dc, feat_n = feat_arrays
@@ -311,6 +344,59 @@ def make_match_program(
             s16 = refine_sweep_batched(D, plane, r0i, c0i, nfe).to(torch.float32)
             total16 = s16 if total16 is None else total16 + s16
         return post_stage(total16, tids, valid, n_above, x2, y2, nfeat_l0,
-                          threshold)
+                          threshold, raw_vals, tid_offset)
 
+    if mesh is None:
+        def run(sources, *bank_and_threshold):
+            return core(sources, *bank_and_threshold)[:, :5].contiguous()
+
+        return run
+
+    dp, tp = axis_size(mesh, "data"), axis_size(mesh, "model")
+    di, mi = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+
+    def local(sources, coarse_tables, feat_arrays, nfeat_l0, nfeat_l1, sizes_l0,
+              sizes_l1, threshold):
+        B, nT = sources[0].shape[0], nfeat_l0.shape[0]
+        if B % dp:
+            raise ValueError(f"a batch of {B} frames does not divide the mesh's data "
+                             f"axis ({dp})")
+        if nT % tp:
+            raise ValueError(f"a bank of {nT} templates does not divide the mesh's model "
+                             f"axis ({tp}): pack it with pad_to={tp}")
+        bl, nl = B // dp, nT // tp
+        frames = slice(di * bl, (di + 1) * bl)
+        shard = slice(mi * nl, (mi + 1) * nl)
+        packed_l = core(
+            [s[frames] for s in sources], tuple(a[shard] for a in coarse_tables),
+            tuple([a[shard] for a in arrs] for arrs in feat_arrays), nfeat_l0[shard],
+            nfeat_l1[shard], sizes_l0[shard], sizes_l1[shard], threshold,
+            tid_offset=mi * nl)  # [B/dp, 6, K+1]
+        packed_all = all_gather_cat(packed_l[None], mesh, "model")  # [tp, B/dp, 6, K+1]
+        return merge_shard_candidates(packed_all, K_cap)
+
+    def run(sources, *bank_and_threshold):
+        return all_gather_cat(local(sources, *bank_and_threshold)[:, :5].contiguous(),
+                              mesh, "data")
+
+    run.local = local
     return run
+
+
+def merge_shard_candidates(packed_all: torch.Tensor, K_cap: int) -> torch.Tensor:
+    """Merge model-axis candidate shards: [tp, ..., 6, K+1] -> [..., 6, K+1].
+
+    Selects the global top-K by raw coarse score (row 5), the criterion
+    of the single-rank program's flat top-K, in its tie order: the shards
+    are concatenated in global template order and ``exact_topk`` prefers
+    the lower index, so ties go to the lower template id as in the flat
+    scan. Empty slots (raw score -1) still take places, as on one rank.
+    ``n_above`` (the overflow count in the last column) sums across shards.
+    """
+    tp = packed_all.shape[0]
+    lead = tuple(packed_all.shape[1:-2])
+    cands = packed_all[..., :-1].movedim(0, -2).reshape(lead + (6, tp * K_cap))
+    _, sel = exact_topk(cands[..., 5, :], K_cap)
+    merged = torch.gather(cands, -1, sel.unsqueeze(-2).expand(lead + (6, K_cap)))
+    n_above = packed_all[..., 0, -1].sum(0)
+    return torch.cat([merged, n_above[..., None, None].expand(lead + (6, 1))], -1)

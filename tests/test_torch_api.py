@@ -16,6 +16,7 @@ from object_detector_6d_tpu.api.pipeline import PoseDetector as RefPoseDetector
 from object_detector_6d_tpu.api.streaming import StreamingDetector as RefStreamingDetector
 from object_detector_6d_tpu.ops import refine_pallas as ref_refine_pallas
 from object_detector_6d_tpu.ops import response_pallas as ref_response_pallas
+from object_detector_6d_tpu.parallel import sharding as ref_sharding
 from object_detector_6d_tpu.quant.color_gradient import ColorGradient as RefColorGradient
 from object_detector_6d_tpu.quant.depth_normal import DepthNormal as RefDepthNormal
 from object_detector_6d_tpu.refine.icp import ICP as RefICP
@@ -30,15 +31,13 @@ from object_detector_6d_tpu_torch.io.convert import (
     pose_detector_from_state,
 )
 from object_detector_6d_tpu_torch.ops import refine, response
+from object_detector_6d_tpu_torch.parallel import sharding
 from object_detector_6d_tpu_torch.quant.color_gradient import ColorGradient
 from object_detector_6d_tpu_torch.quant.depth_normal import DepthNormal
 from object_detector_6d_tpu_torch.refine.icp import ICP
 
 # reference parameters the port does not take yet, and why
 ABSENT = {
-    ("PoseDetector.__init__", "mesh"):
-        "sharding over a device mesh: ROADMAP queue 1 item 19",
-    ("make_detect_program", "mesh"): "the same",
     ("make_detect_program", "max_dr"):
         "sizes the conv path's dense bank tensors; the port's sparse tables take any offset",
     ("make_detect_program", "refine_impl"): "TPU-only choice of the refine kernel",
@@ -48,13 +47,15 @@ ABSENT = {
 }
 PORT_ONLY = {("PoseDetector.__init__", "device"), ("Detector.match", "device"),
              ("ICP.from_params", "device"), ("make_detect_program", "device"),
-             ("ColorGradient.__init__", "device"), ("DepthNormal.__init__", "device")}
+             ("ColorGradient.__init__", "device"), ("DepthNormal.__init__", "device"),
+             ("make_mesh", "device")}
 
 CALLABLES = {
     "Detector.__init__": (RefDetector.__init__, Detector.__init__),
     "Detector.match": (RefDetector.match, Detector.match),
     "Detector.class_ids": (RefDetector.class_ids, Detector.class_ids),
     "Detector.get_templates": (RefDetector.get_templates, Detector.get_templates),
+    "Detector.get_bank": (RefDetector.get_bank, Detector.get_bank),
     "ICP.from_params": (RefICP.from_params, ICP.from_params),
     "ICP.register_model_to_scene": (RefICP.register_model_to_scene,
                                     ICP.register_model_to_scene),
@@ -84,6 +85,7 @@ CALLABLES = {
     "DepthNormal.quantize": (RefDepthNormal.quantize, DepthNormal.quantize),
     "response_spread": (ref_response_pallas.response_spread, response.response_spread),
     "refine_sweep": (ref_refine_pallas.refine_sweep.__wrapped__, refine.refine_sweep),
+    "make_mesh": (ref_sharding.make_mesh, sharding.make_mesh),
 }
 
 
@@ -131,7 +133,8 @@ def test_pose_detector_defaults_to_the_card():
 @pytest.mark.parametrize("name", ["PoseDetector.__init__", "pose_detector_from_state",
                                   "make_detect_program", "pack_views", "FusedScene.__init__",
                                   "Detector.match", "ICP.from_params",
-                                  "ColorGradient.__init__", "DepthNormal.__init__"])
+                                  "ColorGradient.__init__", "DepthNormal.__init__",
+                                  "make_mesh"])
 def test_entry_points_default_to_the_card(name):
     from object_detector_6d_tpu_torch.io import convert
     from object_detector_6d_tpu_torch.ops import geometry
@@ -143,7 +146,7 @@ def test_entry_points_default_to_the_card(name):
           "FusedScene.__init__": geometry.FusedScene.__init__,
           "Detector.match": Detector.match, "ICP.from_params": ICP.from_params,
           "ColorGradient.__init__": ColorGradient.__init__,
-          "DepthNormal.__init__": DepthNormal.__init__}[name]
+          "DepthNormal.__init__": DepthNormal.__init__, "make_mesh": sharding.make_mesh}[name]
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
