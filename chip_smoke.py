@@ -164,6 +164,26 @@ Phases (each raises on failure, so the script exits non-zero):
    c. times   ms per batch, unsharded and world of one in turns, and each
               rank of the world of two (the ranks start each run together);
               launches per rank added to the kernels line
+14. limits, on phase 3's frames and schedule:
+   a. edge    bench's bank plus one 300 x 410 px template (taller than
+              480 - 2 * 40 px) cut from frame 0's own quantized images, so
+              that it is live in frame 0's top-K: 3b-c's gates (drive_path);
+              its base row is negative, and K4 swept it from the row where
+              the reference's conv path starts its window (dynamic_slice
+              counts a negative start from the planes' end and clamps it)
+   b. chunks  synthetic_bank(2, 2, bbox_px=320, num_features=600), one
+              600-feature template cut from frame 0, objA and objB: K4 runs
+              3 chunks of MAX_F = 256 a modality, K6 3 (300 + 300 coarse
+              features); each chunked call on the match program's own
+              arguments equals one twin call over all its features; the
+              match record on the card equals the CPU's
+   c. spread  phase 3's templates at t_at_level (5, 20): K3 at T=20 (the
+              plain spread over 5, then the kernel at 16) equals its twin on
+              the match program's own quantized images; the match record
+              on the card equals the CPU's
+   d. times   ms per batch through detect_fused_dispatch to the device's
+              end, for phase 3's detector and a-c, in turns; the main runs'
+              launches added to the kernels line
 
 The two-modality workload is bench.py's: the snowman objA and its
 0.78-scale objB trained with the port's add_view (rgb = the gray view x3)
@@ -175,8 +195,8 @@ depth-only workload has 130 depth-only distractors instead (13 classes x
 10, 63 / 31 features). Frames and templates come from fixed numpy seeds.
 
 The line before the last is {"kernels": [...]}: every kernel with its
-launches on the two-modality main path plus those of phases 10, 12 and
-13,
+launches on the two-modality main path plus those of phases 10, 12, 13
+and 14,
 its largest difference from its twin, its time beside the twin's, its
 bound (the larger of its bytes over the card's memory rate and its
 operations over the peak rate for their type, from this run's inputs;
@@ -879,6 +899,36 @@ def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
     return recs
 
 
+def match_record(pd, depths, rgbs, K) -> torch.Tensor:
+    """``pd``'s match program [B, 5, K+1] on its device, at THRESHOLD (rgbs
+    None for a depth-only detector)."""
+    det = pd.detector
+    H, W = depths.shape[1:]
+    src = [torch.as_tensor(rgbs, device=pd.device) if n == "ColorGradient" else
+           torch.as_tensor(depths.astype(np.int32), device=pd.device)
+           for n in det.modality_names]
+    with torch.no_grad():
+        return pd.program(H, W, K)[0].match_program(
+            src, *pd.bank_tensors(det.get_bank())[0], THRESHOLD).cpu()
+
+
+def match_card_vs_cpu(label, pd, depths, rgbs, K) -> torch.Tensor:
+    """The match program's [B, 5, K+1] on the card equals the CPU's (the
+    twins), bitwise, on every frame. Returns the card's record."""
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+
+    card = match_record(pd, depths, rgbs, K)
+    cpu = match_record(PoseDetector(detector=pd.detector, params=pd.params,
+                                    model_points=pd.model_points, device="cpu"),
+                       depths, rgbs, K)
+    if not torch.equal(card, cpu):
+        bad = (card != cpu).any(-1).any(-1).nonzero().flatten().tolist()
+        raise AssertionError(f"[{label}] match program card != cpu in frames {bad}")
+    log(f"[{label}] card vs cpu: match program {list(card.shape)} equal on all "
+        f"{len(depths)} frames (n_above per frame {card[:, 0, -1].to(torch.int64).tolist()})")
+    return card
+
+
 def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious, gpu,
                ref_objA_off=None, xdev_frames=2, xdev_logged=()):
     """The path's main run (launch counts from 0, ground-truth gates, ms
@@ -949,26 +999,10 @@ def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious
 
     # card versus CPU (the twins): the match program on all frames
     # (exact), the whole path on the first xdev_frames
-    det = pd.detector
-    cpu_pd = PoseDetector(detector=det, params=pd.params, model_points=pd.model_points,
-                          device="cpu")
+    match_card_vs_cpu(label, pd, depths, rgbs, K)
+    cpu_pd = PoseDetector(detector=pd.detector, params=pd.params,
+                          model_points=pd.model_points, device="cpu")
     cpu_pd.views = pd.views
-    H, W = depths.shape[1:]
-    prog, _ = pd.program(H, W, K)
-    cpu_prog, _ = cpu_pd.program(H, W, K)
-    bank = det.get_bank()
-    d_cpu = torch.as_tensor(depths.astype(np.int32))
-    src_cpu = [torch.as_tensor(rgbs) if n == "ColorGradient" else d_cpu
-               for n in det.modality_names]
-    with torch.no_grad():
-        m_cuda = prog.match_program([s.to(pd.device) for s in src_cpu],
-                                    *pd.bank_tensors(bank)[0], THRESHOLD).cpu()
-        m_cpu = cpu_prog.match_program(src_cpu, *cpu_pd.bank_tensors(bank)[0], THRESHOLD)
-    if not torch.equal(m_cuda, m_cpu):
-        bad = (m_cuda != m_cpu).any(-1).any(-1).nonzero().flatten().tolist()
-        raise AssertionError(f"[{label}] match program card != cpu in frames {bad}")
-    log(f"[{label}] card vs cpu: match program [B,5,K+1] equal on all {B} frames "
-        f"(n_above per frame {m_cpu[:, 0, -1].to(torch.int64).tolist()})")
     # the main run's first 2 frames against the same 2 on the CPU (a
     # frame's result depends on the batch size on neither: the ICP's sums
     # over points are fixed-order trees, tests/test_torch_batch_size.py)
@@ -2390,6 +2424,217 @@ def sharded_phase(dev, pd, depths, rgbs, K, gpu):
     return {name: one[name] + sum(r[name] for r in two) for name in one}
 
 
+# ----------------------------------------------------------------------
+# phase 14: limits, on phase 3's frames and schedule: a template taller
+# than the frame less two borders, more than MAX_F features a template
+# (K4 and K6 in chunks) and a spread T above MAX_T (K3)
+# ----------------------------------------------------------------------
+
+TALL_HW = (300, 410)  # (w, h): taller than 480 - 2 * 40
+WIDE_BBOX_PX = 320  # 600 features 6 px apart fit a 256-384 px template
+WIDE_FEATURES = 600
+T_WIDE = (5, 20)
+
+
+def frame_template(dev, det, rgbs, depths, x0, y0, w, h, n0, seed, flip=0.0):
+    """A template pyramid cut from frame 0's own quantized images, both
+    modalities and levels: n0 / n0 // 2 features drawn (seeded) from the
+    non-zero orientations of its [x0, x0 + w] x [y0, y0 + h] box at level
+    0 (half of it at level 1), with their labels (a ``flip`` fraction of
+    them turned to the opposite orientation), so that it scores near 100%
+    at frame 0's coarse cell (y0 // 16, x0 // 16) and enters its top-K
+    at bench.py's threshold. x0, y0: multiples of 16."""
+    from object_detector_6d_tpu_torch.match.program import quantize_pyramids_batched
+    from object_detector_6d_tpu_torch.quant.features import Feature, Template
+
+    sources = [torch.as_tensor(rgbs[:1], device=dev) if n == "ColorGradient" else
+               torch.as_tensor(depths[:1].astype(np.int32), device=dev)
+               for n in det.modality_names]
+    qs = quantize_pyramids_batched(sources, det.modality_names, 2, det.dn_params,
+                                   det.cg_params)
+    rng = np.random.RandomState(seed)
+    tps = []
+    for lvl, (s, n) in enumerate(((1, n0), (2, n0 // 2))):
+        for q in qs[lvl]:
+            box = q[0, y0 // s:(y0 + h) // s + 1, x0 // s:(x0 + w) // s + 1].cpu().numpy()
+            ys, xs = np.nonzero(box)
+            pick = rng.choice(len(ys), n, replace=len(ys) < n)
+            labels = np.log2(box[ys[pick], xs[pick]]).astype(int)
+            labels[rng.rand(n) < flip] += 4  # the opposite orientation
+            labels %= 8
+            tps.append(Template(w // s, h // s, lvl, [Feature(int(x), int(y), int(lb)) for
+                                                      x, y, lb in zip(xs[pick], ys[pick], labels)]))
+    return tps
+
+
+def limits_detector(dev, pd, t_at_level=None):
+    """A PoseDetector from ``pd``'s trained state (templates, views,
+    schedule), with another pyramid T when given."""
+    from object_detector_6d_tpu_torch.io.convert import pose_detector_from_state
+
+    det_state, templates, views, params = pd_state(pd)
+    if t_at_level is not None:
+        det_state = {**det_state, "t_at_level": list(t_at_level)}
+    return pose_detector_from_state(det_state, templates, views, params, model_points=512,
+                                    device=dev)
+
+
+def limits_edge(dev, pd, depths, rgbs, gts, K, counted, gpu):
+    """14a: bench's bank plus one template taller than the frame less two
+    borders, cut from frame 0. Returns (its PoseDetector, launches)."""
+    from object_detector_6d_tpu_torch.match import program as mp
+
+    label = "limits edge"
+    q = limits_detector(dev, pd)
+    w, h = TALL_HW
+    # a tenth of its labels flipped keeps it to a few live slots in 12 of 32
+    # frames (all of its features true, it is live in every frame, at up to
+    # 8 cells, and the 16 slots overflow); the frames' largest candidate
+    # count goes from 11 to 12
+    tall = frame_template(dev, q.detector, rgbs, depths, 0, 0, w, h, 63, seed=14, flip=0.1)
+    q.detector.add_synthetic_template(tall, "tall")
+    bank = q.detector.get_bank()
+    tall_id = bank.class_ids.index("tall")
+    bargs = q.bank_tensors(bank)[0]
+    log(f"[{label}] bank of {bank.num_templates} templates: bench's and one {w}x{h} px "
+        f"template (frame 0's orientations, 63 + 63 / 31 + 31 features) taller than "
+        f"480 - 80 px; largest level-0 cell offset {int(mp.bank_max_dr(bargs.feat_arrays))}")
+    launches, _ = drive_path(label, q, depths, rgbs, gts, K, counted, REF2_OBJB_FOUND,
+                             REF2_OBJB_SPURIOUS, gpu)
+    card = match_record(q, depths, rgbs, K)  # == the CPU's (drive_path)
+    # the tall template's live slots, and where their sweep started
+    n_above = card[:, 0, -1].to(torch.int64)
+    K_cap = card.shape[-1] - 1
+    live = torch.arange(K_cap)[None] < n_above[:, None]
+    slots = (live & (card[:, 3, :-1] == tall_id)).nonzero().tolist()
+    if not slots:
+        raise AssertionError(f"[{label}] the {h} px template entered no frame's top-K")
+    calls = capture_refine_args(dev, q, depths, rgbs, K)
+    D, _plane, r0, c0, _n = calls[0]
+    dr0, dc0 = bargs.feat_arrays[1][0][tall_id, 0], bargs.feat_arrays[2][0][tall_id, 0]
+    H, W = depths.shape[1:]
+    t0 = q.detector.t_at_level[0]
+    # y2 = min(max(., border), H - h - border) is H - h - border (< the
+    # border) at every coarse row, so the base row is negative; the sweep
+    # starts where the reference's dynamic_slice starts it
+    base_r = (H - h - 8 * t0) // t0 - 8
+    Hp2 = D.shape[2]
+    start_r = min(base_r + Hp2, Hp2 - 16 - int(mp.bank_max_dr(bargs.feat_arrays)))
+    starts = sorted({(int(r0[b, k, 0] - dr0), int(c0[b, k, 0] - dc0)) for b, k in slots})
+    if base_r >= 0 or {r for r, _ in starts} != {start_r}:
+        raise AssertionError(f"[{label}] base row {base_r}, sweep starts {starts}, "
+                             f"expected row {start_r}")
+    log(f"[{label}] {len(slots)} live slots of the {h} px template (frame, slot): "
+        f"{slots[:8]}; its base row {base_r} < 0, its sweep started at (row, column) "
+        f"{starts} of planes {list(D.shape[2:])} (the reference's dynamic_slice start)")
+    return q, launches
+
+
+def limits_chunks(dev, depths, rgbs, K, counted):
+    """14b: synthetic templates of 600 / 300 features (and one cut from
+    frame 0, so that a 600-feature template is live), objA and objB: K4
+    and K6 in chunks of MAX_F. Returns (its PoseDetector, launches)."""
+    from object_detector_6d_tpu_torch.api.detector import Detector
+    from object_detector_6d_tpu_torch.data.synthetic import synthetic_bank
+    from object_detector_6d_tpu_torch.ops import refine
+
+    label = "limits chunks"
+    det = synthetic_bank(n_classes=2, per_class=2, bbox_px=WIDE_BBOX_PX,
+                         num_features=WIDE_FEATURES, seed=0, detector=Detector())
+    det.add_synthetic_template(frame_template(dev, det, rgbs, depths, 160, 64, 320, 320,
+                                              WIDE_FEATURES, seed=15), "wide")
+    q = train(det, dev, scenes_module(), K)
+    bank = det.get_bank()
+    F0 = max(a.shape[1] for a in bank.feat_plane)
+    F1 = bank.coarse[0].shape[1]
+    want = {"refine_sweep_batched": 2 * -(-F0 // refine.MAX_F),
+            "coarse_sweep": -(-F1 // refine.MAX_F)}
+    q.detect_fused_batch(depths[:2], K, rgbs[:2])  # the bank on the card
+    _, launches = counted_run(counted, lambda: q.detect_fused_dispatch(depths, K, rgbs))
+    log(f"[{label}] {bank.num_templates} templates, level-0 tables {F0} wide, coarse "
+        f"{F1}; main path launches {launches} (chunks of {refine.MAX_F})")
+    for name, n in launches.items():
+        if n <= 0 or n != want.get(name, n):
+            raise AssertionError(f"[{label}] {name} launched {n} times, expected "
+                                 f"{want.get(name, '> 0')}")
+    card = match_card_vs_cpu(label, q, depths, rgbs, K)
+    with uncounted(counted):
+        for i, (D, plane, r0, c0, n) in enumerate(capture_refine_args(dev, q, depths, rgbs, K)):
+            before = refine.refine_sweep_batched.launches
+            got = refine.refine_sweep_batched(D, plane, r0, c0, n)
+            chunks = refine.refine_sweep_batched.launches - before
+            compare(f"[{label}] K4 call {i} in {chunks} chunks vs one twin call", got.cpu(),
+                    refine.refine_sweep_plain(*(t.cpu() for t in (D, plane, r0, c0, n))))
+        D, tables, gh, gw = coarse_main_inputs(dev, q, rgbs, depths)
+        before = refine.coarse_sweep.launches
+        got = refine.coarse_sweep(D, *tables, gh, gw)
+        k6_chunks = refine.coarse_sweep.launches - before
+        compare(f"[{label}] K6 in {k6_chunks} chunks vs one twin call", got.cpu(),
+                refine.coarse_sweep_plain(D.cpu(), *(t.cpu() for t in tables), gh, gw))
+    keep = card[:, 4, :-1] > 0
+    log(f"[{label}] K4 ({chunks} chunks a call) and K6 ({k6_chunks} chunks) on the match "
+        f"program's own arguments == one twin call over all features, bitwise; kept slots "
+        f"{int(keep.sum())}")
+    return q, launches
+
+
+def limits_spread(dev, pd, depths, rgbs, K, counted):
+    """14c: phase 3's templates at t_at_level (5, 20): K3 at T=20 (spread
+    over 5, then the kernel at 16). Returns (its PoseDetector, launches)."""
+    from object_detector_6d_tpu_torch.ops import response
+
+    label = "limits spread"
+    q = limits_detector(dev, pd, T_WIDE)
+    q.detect_fused_batch(depths[:2], K, rgbs[:2])  # the bank on the card
+    _, launches = counted_run(counted, lambda: q.detect_fused_dispatch(depths, K, rgbs))
+    log(f"[{label}] t_at_level {T_WIDE}: main path launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[{label}] {name} was not launched by the main path")
+    match_card_vs_cpu(label, q, depths, rgbs, K)
+    with uncounted(counted):
+        calls = capture_response_args(dev, q, depths, rgbs, K)
+        ts = sorted({t for _, t in calls})
+        if ts != sorted(T_WIDE):
+            raise AssertionError(f"[{label}] spreads at {ts}")
+        for qq, t in calls:
+            compare(f"[{label}] K3 T={t} {tuple(qq.shape)}",
+                    response.response_spread_batched(qq, t).cpu(),
+                    response.response_spread_plain(qq.cpu(), t))
+    log(f"[{label}] K3 at T={ts} on the match program's own quantized images == the twin, "
+        f"bitwise (T=20: the plain spread over 5, then the kernel at {response.MAX_T})")
+    return q, launches
+
+
+def limits_phase(dev, pd, depths, rgbs, gts, K, counted, gpu):
+    """Phase 14. Returns the launches per kernel wrapper over its three
+    main runs."""
+    runs = {"phase 3": pd}
+    total = {fn.__name__: 0 for fn in counted}
+    for name, case in (
+            ("edge", lambda: limits_edge(dev, pd, depths, rgbs, gts, K, counted, gpu)),
+            ("chunks", lambda: limits_chunks(dev, depths, rgbs, K, counted)),
+            ("spread", lambda: limits_spread(dev, pd, depths, rgbs, K, counted))):
+        t1 = time.time()
+        runs[name], launches = case()
+        for k, n in launches.items():
+            total[k] += n
+        log(f"[limits {name}] {time.time() - t1:.1f} s")
+    times = {name: [] for name in runs}
+    for _ in range(6):  # in turns; the first round is the warm-up
+        for name, q in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q.detect_fused_dispatch(depths, K, rgbs)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    for name, ts in times.items():
+        log(f"[limits] time {name}: median {statistics.median(ts[1:]):.2f} ms per "
+            f"B={len(depths)} batch through detect_fused_dispatch to the device's end (5 "
+            f"runs after 1 warm-up, in turns; {gpu}); runs {[round(t, 2) for t in ts]}")
+    return total
+
+
 def run(dev, gpu: str) -> None:
     from object_detector_6d_tpu_torch.api.detector import Detector
     from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
@@ -2467,9 +2712,14 @@ def run(dev, gpu: str) -> None:
     sharded = sharded_phase(dev, pd2, depths2, rgbs2, K, gpu)
     log(f"phase sharded: {time.time() - t1:.1f} s; launches {sharded}")
 
+    # phase 14: limits (frame edge, chunked K4 / K6, K3 beyond T=16)
+    t1 = time.time()
+    limits = limits_phase(dev, pd2, depths2, rgbs2, gts2, K, counted2, gpu)
+    log(f"phase limits: {time.time() - t1:.1f} s; launches {limits}")
+
     for r in recs:
         r["launches"] = (launches[r["name"]] + offline[r["name"]] + forms[r["name"]]
-                         + sharded[r["name"]])
+                         + sharded[r["name"]] + limits[r["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(gpu)

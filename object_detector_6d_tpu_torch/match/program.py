@@ -156,6 +156,15 @@ def bank_args(bank: PackedBank, device) -> BankArgs:
     )
 
 
+def bank_max_dr(feat_arrays) -> torch.Tensor:
+    """The bank's largest level-0 feature cell offset, max(y // t0, x // t0)
+    over every modality's features (the reference's ``PackedBank.max_dr``),
+    as a 0-dim tensor on the tables' device (no host sync)."""
+    _, feat_dr, feat_dc, _ = feat_arrays
+    return torch.cat([a.reshape(-1) for a in (*feat_dr, *feat_dc)]
+                     + [feat_dr[0].new_zeros(1)]).max()
+
+
 def quantize_pyramids_batched(sources_b, modality_names, levels, dn_params, cg_params):
     """Quantized images [level][modality], each [B, H, W] u8: K1 per
     ColorGradient level (``pyr_down_u8`` in between), K2 once per
@@ -284,13 +293,40 @@ def make_match_program(
         ys = (rc // gw) * t1 + off1
         return tids, valid, n_above, xs, ys, top_vals
 
-    def anchors_stage(tids, xs, ys, sizes_l0):
+    def anchors_stage(tids, xs, ys, sizes_l0, window):
+        """Level-0 anchors x2, y2 and the rows / columns where the 16x16
+        sweep starts, as the reference's conv path takes them.
+
+        A template taller (wider) than the frame less two borders puts
+        the base y2 // t0 - 8 below 0. The reference cuts its window of
+        ``window`` = 16 + max_dr cells (max_dr: the bank's largest level-0
+        feature cell offset) with ``dynamic_slice``, which counts a
+        negative start from the end of the planes and then clamps it into
+        [0, Hp2 - window]; the same start is taken here. x2, y2 (and so
+        post_stage's reported position) stay unclamped, as there. A base
+        >= 0 is swept where it is: there the reference's clamp is its
+        fault (ROADMAP queue 3 item 1c) and its TPU path sums at the base.
+
+        No tile leaves its plane for a template no larger than the frame.
+        Feature f (0 <= f.y <= th, f.y // t0 <= max_dr) puts its tile's
+        last row at start + f.y // t0 + 15. From a base >= 0, y2 + f.y <=
+        H0 - border gives (y2 + f.y) // t0 + 7 <= H0 // t0 - 1 < Hd < Hp2.
+        From a negative base, start <= Hp2 - 16 - max_dr gives <= Hp2 - 1,
+        or start = 0 (a window taller than the planes, which the
+        reference cannot cut) gives th // t0 + 15 <= Hd + 15 < Hp2, as
+        Hp2 >= Hd + 17. Columns likewise, with Wp2 >= Wd + 17.
+        """
         border = 8 * t0
         tw = sizes_l0[tids, 0]
         th = sizes_l0[tids, 1]
         x2 = torch.minimum(torch.clamp(xs * 2 + 1, min=border), W0 - tw - border)
         y2 = torch.minimum(torch.clamp(ys * 2 + 1, min=border), H0 - th - border)
-        return x2, y2, x2 // t0 - 8, y2 // t0 - 8
+
+        def start(base, size):
+            wrapped = torch.minimum(base + size, size - window).clamp(min=0)
+            return torch.where(base < 0, wrapped, base)
+
+        return x2, y2, start(x2 // t0 - 8, Wp2), start(y2 // t0 - 8, Hp2)
 
     def build_D(R):
         """[B, 8, H0, W0] u8 -> decimated int8 planes [B, 8*t0^2, Hp2, Wp2]
@@ -322,17 +358,20 @@ def make_match_program(
         return torch.cat([packed, n_col], dim=2)
 
     def core(sources, coarse_tables, feat_arrays, nfeat_l0, nfeat_l1, sizes_l0,
-             sizes_l1, threshold, tid_offset=0):
+             sizes_l1, threshold, tid_offset=0, max_dr=None):
         """The whole path on the given frames and (part of the) bank ->
-        [B, 6, K+1]."""
+        [B, 6, K+1]; ``max_dr`` is the whole bank's (by default that of
+        ``feat_arrays``)."""
         if len(sources) != num_mod:
             raise ValueError(f"{len(sources)} sources for modalities {tuple(modality_names)}")
         threshold = float(np.float32(threshold))
         R0_b, R1_b = compute_responses(sources)
         tids, valid, n_above, xs, ys, raw_vals = coarse_stage(
             R1_b, coarse_tables, nfeat_l1, sizes_l1, threshold)
-        x2, y2, base_c, base_r = anchors_stage(tids, xs, ys, sizes_l0)
         feat_plane, feat_dr, feat_dc, feat_n = feat_arrays
+        if max_dr is None:
+            max_dr = bank_max_dr(feat_arrays)
+        x2, y2, base_c, base_r = anchors_stage(tids, xs, ys, sizes_l0, 16 + max_dr)
         total16 = None
         for mod in range(num_mod):
             D = build_D(R0_b[mod])
@@ -371,7 +410,7 @@ def make_match_program(
             [s[frames] for s in sources], tuple(a[shard] for a in coarse_tables),
             tuple([a[shard] for a in arrs] for arrs in feat_arrays), nfeat_l0[shard],
             nfeat_l1[shard], sizes_l0[shard], sizes_l1[shard], threshold,
-            tid_offset=mi * nl)  # [B/dp, 6, K+1]
+            tid_offset=mi * nl, max_dr=bank_max_dr(feat_arrays))  # [B/dp, 6, K+1]
         packed_all = all_gather_cat(packed_l[None], mesh, "model")  # [tp, B/dp, 6, K+1]
         return merge_shard_candidates(packed_all, K_cap)
 

@@ -17,6 +17,11 @@ kernels, D's plane sizes need not be powers of two. K4's wrapper checks
 that every swept tile lies inside its plane; K6 reads zero outside its
 planes (the zero padding of the reference main path's coarse conv), so
 its columns never wrap as the TPU kernel's do.
+
+Both kernels stage at most MAX_F features a candidate or template; a
+wider table goes through ``chunked_sweep`` on either device, one launch a
+chunk of MAX_F features, and the int32 sums of the chunks add up to
+those of one sweep over every feature.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch
 
 from object_detector_6d_tpu_torch.ops import kernels
 
-MAX_F = 256  # features per candidate (K4) or template (K6) the kernels stage
+MAX_F = 256  # features per candidate (K4) or template (K6) a kernel launch stages
 
 
 def _check_args(d_planes, plane_idx, r0, c0, nfeat):
@@ -62,9 +67,27 @@ def refine_sweep_plain(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
     return tiles.sum(dim=2, dtype=torch.int32)
 
 
-def refine_sweep_batched(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
-    """[B, K, 16, 16] int32 local similarity sums."""
-    _check_args(d_planes, plane_idx, r0, c0, nfeat)
+def chunked_sweep(sweep, tables, nfeat, chunk: int = MAX_F) -> torch.Tensor:
+    """``sweep(*tables, nfeat)`` over feature tables of any width F (the
+    last axis of every table), as the sum of one call a chunk of
+    ``chunk`` features: chunk j takes the columns [j*chunk, (j+1)*chunk)
+    and counts nfeat_j = clamp(nfeat - j*chunk, 0, its width). A chunk
+    whose counts are all 0 is skipped (the first always runs). The sums
+    are int32, so the result equals one sweep over all F, bitwise."""
+    F = tables[0].shape[-1]
+    if F <= chunk:
+        return sweep(*tables, nfeat)
+    most = int(nfeat.max()) if nfeat.numel() else 0
+    out = None
+    for j in range(min(-(-F // chunk), max(1, -(-most // chunk)))):
+        part = [t[..., j * chunk:(j + 1) * chunk] for t in tables]
+        s = sweep(*part, (nfeat - j * chunk).clamp(0, part[0].shape[-1]))
+        out = s if out is None else out + s
+    return out
+
+
+def _refine_sweep_launch(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
+    """One K4 launch (or its twin on the CPU) over at most MAX_F features."""
     if d_planes.device.type == "cpu":
         return refine_sweep_plain(d_planes, plane_idx, r0, c0, nfeat)
     args = [d_planes.to(torch.int8).contiguous()] + [
@@ -72,8 +95,6 @@ def refine_sweep_batched(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
     kernels.require_cuda("refine_sweep_batched", *args)
     B, P, Hp, Wp = d_planes.shape
     K, F = plane_idx.shape[1], plane_idx.shape[2]
-    if F > MAX_F:
-        raise ValueError(f"refine sweep: {F} features per candidate > {MAX_F}")
     if P * Hp * Wp >= 2 ** 31:
         raise ValueError(f"refine sweep: a frame's D {P}x{Hp}x{Wp} exceeds int32 offsets")
     out = torch.empty((B, K, 16, 16), dtype=torch.int32, device=d_planes.device)
@@ -84,6 +105,14 @@ def refine_sweep_batched(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
     kernels.check(code, "refine_sweep_batched")
     refine_sweep_batched.launches += 1
     return out
+
+
+def refine_sweep_batched(d_planes, plane_idx, r0, c0, nfeat) -> torch.Tensor:
+    """[B, K, 16, 16] int32 local similarity sums (one launch a chunk of
+    MAX_F features)."""
+    _check_args(d_planes, plane_idx, r0, c0, nfeat)
+    return chunked_sweep(lambda *t: _refine_sweep_launch(d_planes, *t),
+                         (plane_idx, r0, c0), nfeat)
 
 
 refine_sweep_batched.launches = 0
@@ -122,15 +151,9 @@ def coarse_sweep_plain(d_planes, plane_idx, dr, dc, nfeat, out_h: int,
     return out
 
 
-def coarse_sweep(d_planes, plane_idx, dr, dc, nfeat, out_h: int, out_w: int
-                 ) -> torch.Tensor:
-    """[B, nT, out_h, out_w] int32 raw coarse similarity grid."""
-    if d_planes.dim() != 4 or plane_idx.dim() != 2 or nfeat.dim() != 1:
-        raise ValueError("expected D [B,P,Hp,Wp], tables [nT,F], nfeat [nT]")
-    if dr.shape != plane_idx.shape or dc.shape != plane_idx.shape \
-            or nfeat.shape[0] != plane_idx.shape[0]:
-        raise ValueError(f"table shapes {tuple(plane_idx.shape)}, {tuple(dr.shape)}, "
-                         f"{tuple(dc.shape)}, nfeat {tuple(nfeat.shape)} disagree")
+def _coarse_sweep_launch(d_planes, plane_idx, dr, dc, nfeat, out_h: int, out_w: int
+                         ) -> torch.Tensor:
+    """One K6 launch (or its twin on the CPU) over at most MAX_F features."""
     if d_planes.device.type == "cpu":
         return coarse_sweep_plain(d_planes, plane_idx, dr, dc, nfeat, out_h, out_w)
     args = [d_planes.to(torch.int8).contiguous()] + [
@@ -138,8 +161,6 @@ def coarse_sweep(d_planes, plane_idx, dr, dc, nfeat, out_h: int, out_w: int
     kernels.require_cuda("coarse_sweep", *args)
     B, P, Hp, Wp = d_planes.shape
     nT, F = plane_idx.shape
-    if F > MAX_F:
-        raise ValueError(f"coarse sweep: {F} features per template > {MAX_F}")
     if max(Hp, Wp, out_h, out_w) >= 2 ** 24 \
             or ((P + 2) * Hp + out_h + 1024) * Wp + out_w + 64 >= 2 ** 31:
         raise ValueError(f"coarse sweep: a frame's D {P}x{Hp}x{Wp} swept over "
@@ -152,6 +173,20 @@ def coarse_sweep(d_planes, plane_idx, dr, dc, nfeat, out_h: int, out_w: int
     kernels.check(code, "coarse_sweep")
     coarse_sweep.launches += 1
     return out
+
+
+def coarse_sweep(d_planes, plane_idx, dr, dc, nfeat, out_h: int, out_w: int
+                 ) -> torch.Tensor:
+    """[B, nT, out_h, out_w] int32 raw coarse similarity grid (one launch a
+    chunk of MAX_F features)."""
+    if d_planes.dim() != 4 or plane_idx.dim() != 2 or nfeat.dim() != 1:
+        raise ValueError("expected D [B,P,Hp,Wp], tables [nT,F], nfeat [nT]")
+    if dr.shape != plane_idx.shape or dc.shape != plane_idx.shape \
+            or nfeat.shape[0] != plane_idx.shape[0]:
+        raise ValueError(f"table shapes {tuple(plane_idx.shape)}, {tuple(dr.shape)}, "
+                         f"{tuple(dc.shape)}, nfeat {tuple(nfeat.shape)} disagree")
+    return chunked_sweep(lambda *t: _coarse_sweep_launch(d_planes, *t, out_h, out_w),
+                         (plane_idx, dr, dc), nfeat)
 
 
 coarse_sweep.launches = 0

@@ -6,6 +6,12 @@ and its one-frame form ``response_spread``).
 (values 0..4), equal to ``response_maps(spread(q, t))`` of
 match/response.py. A CPU tensor goes to that plain twin; a CUDA tensor
 launches csrc/response_spread.cu or raises. Integer only: bit-exact.
+
+The kernel spreads over at most MAX_T. A wider T on the card first
+spreads q over T - MAX_T + 1 with the plain ``spread`` and then launches
+the kernel at MAX_T: a forward OR spread over [0, a) followed by one over
+[0, b) is a spread over [0, a + b - 1), and both fill zero past the
+frame, so the maps are those of T.
 """
 
 from __future__ import annotations
@@ -24,13 +30,16 @@ def response_spread_plain(q: torch.Tensor, t: int) -> torch.Tensor:
 
 
 def response_spread_batched(q: torch.Tensor, t: int) -> torch.Tensor:
-    """[B, H, W] u8 -> [B, 8, H, W] u8 response maps."""
+    """[B, H, W] u8 -> [B, 8, H, W] u8 response maps; any T >= 1 (beyond
+    MAX_T the kernel runs at MAX_T on q spread over T - MAX_T + 1)."""
     if q.dim() != 3 or q.dtype != torch.uint8:
         raise ValueError(f"q must be [B, H, W] u8, got {q.dtype} {tuple(q.shape)}")
     if q.device.type == "cpu":
         return response_spread_plain(q, t)
-    if not 1 <= t <= MAX_T:
-        raise ValueError(f"spread T={t} outside 1..{MAX_T}")
+    if t < 1:
+        raise ValueError(f"spread T={t} < 1")
+    if t > MAX_T:
+        q, t = spread(q, t - MAX_T + 1), MAX_T
     q = q.contiguous()
     kernels.require_cuda("response_spread_batched", q)
     B, H, W = q.shape

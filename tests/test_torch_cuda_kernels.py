@@ -355,3 +355,41 @@ def test_refine_kernel_main_path_shape(dev):
     r0 = torch.as_tensor(rng.randint(0, 113, (B, K, F)), dtype=torch.int32, device=dev)
     c0 = torch.as_tensor(rng.randint(0, 241, (B, K, F)), dtype=torch.int32, device=dev)
     _refine_equal(D, plane, r0, c0, nfeat)
+
+
+# ----------------------------------------------------------------------
+# beyond a launch's limits: K4 and K6 over more than MAX_F features (one
+# launch a chunk of MAX_F), K3 over a T above MAX_T (the plain spread
+# over T - MAX_T + 1, then the kernel at MAX_T)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("F", [257, 600])
+def test_refine_kernel_beyond_max_f_in_chunks(dev, F):
+    """Bytes over the whole int8 range, counts of 0, F and in between:
+    one launch a chunk up to the largest count, the sums the twin's."""
+    rng = np.random.RandomState(F)
+    B, P, Hp, Wp, K = 2, 5, 33, 41, 4
+    nfeat = rng.randint(0, F + 1, (B, K))
+    nfeat[0, 0], nfeat[1, 3] = F, 0
+    args = _refine_case(rng, dev, B, P, Hp, Wp, K, F, nfeat)
+    before = refine.refine_sweep_batched.launches
+    _refine_equal(*args)
+    assert refine.refine_sweep_batched.launches - before == -(-F // refine.MAX_F)
+
+
+@pytest.mark.parametrize("F", [300, 600])
+def test_coarse_kernel_beyond_max_f_in_chunks(dev, F):
+    rng = np.random.RandomState(F)
+    nfeat = rng.randint(0, F + 1, 5)
+    nfeat[2] = F
+    args = _coarse_case(rng, dev, 2, 9, 30, 40, 5, F, nfeat, (-2, 8), (-2, 8))
+    before = refine.coarse_sweep.launches
+    _coarse_equal(args, 30, 40)
+    assert refine.coarse_sweep.launches - before == -(-F // refine.MAX_F)
+
+
+@pytest.mark.parametrize("B,H,W,t", [(2, 37, 90, 17), (2, 37, 90, 33), (1, 9, 5, 40),
+                                     (32, 240, 320, 20)])
+def test_response_kernel_beyond_max_t(dev, B, H, W, t):
+    rng = np.random.RandomState(H * W + t)
+    _response_equal(_onehot(rng, (B, H, W)).to(dev), t)

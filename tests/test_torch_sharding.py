@@ -6,16 +6,14 @@ the JAX package's mesh program on make_mesh(4) of the virtual CPU devices.
 
 The programs run at tests/test_sharding.py's setup, 120x160 frames of
 colour noise, B = 2 * data, a synthetic two-class bank of 2 * model
-templates per class, threshold 60, 2 * model candidates, with two changes.
+templates per class drawn at bbox_px=40 (up to 47 px, taller than the
+frame less two 40 px borders: their refinement windows start where the
+reference's conv path starts them, tests/test_torch_limits.py), threshold
+60, 2 * model candidates, with one change.
 The depth is a plane at 1 m with 0-3 mm of noise (the reference test's
 0-400 mm of noise) and the models are 64-point planar patches facing the
 camera (its random points and normals), so that ICP lanes converge and
-survive: there, no lane is kept. Its templates are drawn at bbox_px=32
-(the reference's test draws 40): the port's
-refinement (K4's wrapper) refuses a 16x16 tile that leaves the decimated
-planes, and at 120 rows a template taller than 40 px puts its anchor row
-above the 40 px border, where the reference's conv path clamps the window
-instead (ROADMAP.md queue 3). PoseDetector(mesh=) runs at 480x640 on the
+survive: there, no lane is kept. PoseDetector(mesh=) runs at 480x640 on the
 snowman objA and its 0.78-scale objB, trained here with add_view and
 handed to every rank through pose_detector_from_state.
 
@@ -79,9 +77,9 @@ POSE_BATCH = 2 * DP  # sharded; POSE_BATCH - 1 does not divide the data axis
 
 
 def _bank_and_frames():
-    """tests/test_sharding.py's bank and colour frames (templates at 32 px),
+    """tests/test_sharding.py's bank and colour frames (templates at 40 px),
     a noisy plane for depth, and planar views in bank order."""
-    det = synthetic_bank(n_classes=2, per_class=2 * TP, bbox_px=32, seed=0)
+    det = synthetic_bank(n_classes=2, per_class=2 * TP, bbox_px=40, seed=0)
     bank = mp.pack_bank(det.class_templates, 2, 2, t0=det.t_at_level[0],
                         t1=det.t_at_level[1], pad_to=TP)
     rng = np.random.RandomState(0)
@@ -332,7 +330,7 @@ def test_sharded_match_equals_reference_mesh(world):
     from object_detector_6d_tpu.parallel.sharding import make_mesh as ref_make_mesh
 
     _, bank, bgrs, deps, _ = _bank_and_frames()
-    det = ref_synthetic_bank(n_classes=2, per_class=2 * TP, bbox_px=32, seed=0)
+    det = ref_synthetic_bank(n_classes=2, per_class=2 * TP, bbox_px=40, seed=0)
     ref_bank = ref_mp.pack_bank(det.class_templates, 2, 2, t0=det.t_at_level[0],
                                 t1=det.t_at_level[1], pad_to=TP)
     assert ref_bank.class_ids == bank.class_ids
