@@ -127,9 +127,8 @@ Phases (each raises on failure, so the script exits non-zero):
               flat_output=True at batch=32: unflatten_outputs(flat) equals
               the raw tuple, and make_cluster_stage applied to the raw tuple
               equals the production record (PoseDetector.program), bitwise
-   b. one     batch=None on frame 0 against row 0 of the batch: packed and
-              keep equal, kept poses within 0.1 mm / 0.05 deg (the bound of
-              tests/test_torch_batch_size.py)
+   b. one     batch=None on frame 0 against row 0 of the batch: packed,
+              poses, residuals and keep equal bitwise
    c. B=1     ColorGradient().quantize and DepthNormal().quantize of frame 0
               (gray x3 and a noisy BGR frame) equal row 0 of K1 / K2;
               response_spread (both modalities, T = 5 and 8) and
@@ -155,11 +154,10 @@ Phases (each raises on failure, so the script exits non-zero):
               refuses two ranks on one card), mesh (1, 2), each building
               PoseDetector(mesh=) from pose_detector_from_state: every
               kernel launched on each rank; the match record [B, 5, K+1]
-              equal to the unsharded one bitwise; every class but objB
-              within 0.1 mm / 0.05 deg of the unsharded poses on all 32
-              frames (ROADMAP queue 3 item 2: lanes split across ranks
-              change the card's ICP sums in their last bits), objB's frames
-              apart logged; K6 at a rank's template shard (61 of 122
+              and every class's poses and residuals (objB included) equal
+              to the unsharded ones bitwise on all 32 frames (a rank refines
+              half of each frame's lanes, and a lane's bits do not depend on
+              the lanes beside it); K6 at a rank's template shard (61 of 122
               templates) equal to its twin
    c. times   ms per batch, unsharded and world of one in turns, and each
               rank of the world of two (the ranks start each run together);
@@ -184,6 +182,27 @@ Phases (each raises on failure, so the script exits non-zero):
    d. times   ms per batch through detect_fused_dispatch to the device's
               end, for phase 3's detector and a-c, in turns; the main runs'
               launches added to the kernels line
+15. batch: a frame's answer does not depend on the batch it came in (every
+   float sum of the projective ICP is a core/reduce.py fixed_sum tree):
+   a. alone   on phase 3's and phase 4's detectors and frames: frames 0, 1
+              and 31 alone, in batches of 2 and 4 (31 at their ends) and at
+              positions 0, 1 and 31 of the B=32 batch: the flat NMS record's
+              rows and the Pose arrays equal bitwise
+   b. multi   phase 7's G=2 dispatch_multi batches: each equals
+              detect_fused_batch of the same 32 frames, and the reversed
+              batch's row 31 - f the first batch's row f, bitwise
+   c. tick    phase 8's 4-camera StreamingDetector.process: each camera
+              equals its frame alone, bitwise
+   d. times   ms per B=32 two-modality batch; the device operations of one
+              batch per detect.* span (torch.profiler trace), the lift + ICP
+              span's among them; the phase's launches added to the kernels
+              line
+16. colour: the snowman trained by add_view on a coloured view (blue the
+   gray, green a dimmer gray, red a patterned gray: K1's channel argmax no
+   longer ties as on gray x3) on the card and the CPU, templates equal
+   exactly; two coloured 480x640 frames (tests/test_torch_limits_frame.py's):
+   the match record card == CPU bitwise, the snowman on its truth, poses
+   card vs CPU within 1 mm / 0.5 deg; launches added to the kernels line
 
 The two-modality workload is bench.py's: the snowman objA and its
 0.78-scale objB trained with the port's add_view (rgb = the gray view x3)
@@ -195,8 +214,8 @@ depth-only workload has 130 depth-only distractors instead (13 classes x
 10, 63 / 31 features). Frames and templates come from fixed numpy seeds.
 
 The line before the last is {"kernels": [...]}: every kernel with its
-launches on the two-modality main path plus those of phases 10, 12, 13
-and 14,
+launches on the two-modality main path plus those of phases 10, 12, 13,
+14, 15 and 16,
 its largest difference from its twin, its time beside the twin's, its
 bound (the larger of its bytes over the card's memory rate and its
 operations over the peak rate for their type, from this run's inputs;
@@ -365,17 +384,22 @@ def two_modality_bank():
                           detector=Detector())
 
 
+def train_params():
+    """bench.py's promoted schedule."""
+    from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
+
+    return DetectParams(match_threshold=THRESHOLD, max_hypotheses=16,
+                        icp=ICPParams(iterations=32, num_levels=4,
+                                      solves_per_assoc=2, finest_assoc=2),
+                        num_seeds=2, fine_compact=8)
+
+
 def train(det, dev, scenes, K):
     """A PoseDetector on ``dev`` with bench.py's promoted schedule, objA and
     objB (the 0.78-scale snowman) trained into ``det`` with add_view."""
     from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
-    from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
 
-    params = DetectParams(match_threshold=THRESHOLD, max_hypotheses=16,
-                          icp=ICPParams(iterations=32, num_levels=4,
-                                        solves_per_assoc=2, finest_assoc=2),
-                          num_seeds=2, fine_compact=8)
-    pd = PoseDetector(detector=det, params=params, model_points=512, device=dev)
+    pd = PoseDetector(detector=det, params=train_params(), model_points=512, device=dev)
     t0 = time.time()
     for cid, scale in (("objA", 1.0), ("objB", 0.78)):
         dep, gray, mask = scenes.snowman_scene(scale=scale)
@@ -1004,8 +1028,9 @@ def drive_path(label, pd, depths, rgbs, gts, K, counted, ref_found, ref_spurious
                           model_points=pd.model_points, device="cpu")
     cpu_pd.views = pd.views
     # the main run's first 2 frames against the same 2 on the CPU (a
-    # frame's result depends on the batch size on neither: the ICP's sums
-    # over points are fixed-order trees, tests/test_torch_batch_size.py)
+    # frame's result depends on the batch size on neither device: the ICP's
+    # sums over points are fixed-order trees, core/reduce.py fixed_sum; held
+    # by tests/test_torch_batch_size.py and phase 15)
     n = xdev_frames
     got_cpu = cpu_pd.detect_fused_batch(depths[:n], K, None if rgbs is None else rgbs[:n])
     results = results[:n]
@@ -1258,7 +1283,8 @@ def multi_phase(pd2, depths2, rgbs2, K, gpu):
 
 
 def streaming_phase(dev, scenes, K, gpu):
-    """The reference's four-camera tick through StreamingDetector."""
+    """The reference's four-camera tick through StreamingDetector. Returns
+    its PoseDetector and the tick's depths and BGR frames."""
     from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
     from object_detector_6d_tpu_torch.api.streaming import StreamingDetector
     from object_detector_6d_tpu_torch.core.config import DetectParams, ICPParams
@@ -1338,6 +1364,7 @@ def streaming_phase(dev, scenes, K, gpu):
                              f"{worst_r:.3f} deg")
     log(f"[{label}] process_host card vs cpu: same detections, max |dt| "
         f"{worst_t * 1e3:.4f} mm, max rotation {worst_r:.4f} deg")
+    return pd, depths, rgbs
 
 
 def parity_phase(gpu):
@@ -2043,15 +2070,12 @@ def raw_forms_checks(dev, pd, depths, rgbs, K, counted):
     one = one_prog([s[0] for s in src], bargs, views, THRESHOLD)
     same_nan(f"[{label}] one-frame packed vs batch row 0", one[0], raw[0][0])
     same_nan(f"[{label}] one-frame keep vs batch row 0", one[3], raw[3][0])
-    k0 = keep[0]
-    p1, pb = one[1].cpu().numpy()[k0], raw[1][0].cpu().numpy()[k0]
-    dt = float(np.abs(p1[:, :3, 3] - pb[:, :3, 3]).max()) if k0.any() else 0.0
-    dr = max((rot_deg(a, b) for a, b in zip(p1[:, :3, :3], pb[:, :3, :3])), default=0.0)
-    if not k0.any() or dt > 1e-4 or dr > 0.05:
-        raise AssertionError(f"[{label}] one frame vs batch row 0: {int(k0.sum())} kept, "
-                             f"{dt * 1e3:.5f} mm, {dr:.5f} deg (bound 0.1 mm / 0.05 deg)")
-    log(f"[{label}] batch=None on frame 0 == row 0 of the batch: packed and keep equal, "
-        f"{int(k0.sum())} kept poses within {dt * 1e3:.6f} mm / {dr:.6f} deg")
+    same_nan(f"[{label}] one-frame poses vs batch row 0", one[1], raw[1][0])
+    same_nan(f"[{label}] one-frame residuals vs batch row 0", one[2], raw[2][0])
+    if not keep[0].any():
+        raise AssertionError(f"[{label}] frame 0 kept no pose")
+    log(f"[{label}] batch=None on frame 0 == row 0 of the batch, bitwise: packed, poses, "
+        f"residuals and keep ({int(keep[0].sum())} kept)")
 
     # (c) the front ends and one-frame wrappers against the batched forms
     noise = np.random.RandomState(7).randint(-24, 25, rgbs[0].shape, dtype=np.int16)
@@ -2187,11 +2211,6 @@ def raw_forms_phase(dev, pd, depths, rgbs, gts, K, counted, gpu):
 # in a world of two (spawned processes, gloo, both on the one card)
 # ----------------------------------------------------------------------
 
-# ROADMAP.md queue 3 item 2: lanes split across ranks change the card's ICP
-# sums in their last bits; objB's hypotheses on objA's body sit at the
-# residual gate, so objB is logged, not held
-SHARD_T_M = 1e-4
-SHARD_DEG = 0.05
 SHARD_TIMEOUT_S = 600
 
 
@@ -2344,8 +2363,9 @@ def sharded_rank(rank, port, dev, state, frames, K, out_path):
 
 def world_of_two(dev, pd, depths, rgbs, K, gpu):
     """The world of two against the unsharded detector: the match record
-    bitwise, every class but objB within SHARD_T_M / SHARD_DEG on every
-    frame (objB's frames apart are logged). Returns the launches per rank."""
+    and every class's poses and residuals on every frame bitwise (a rank
+    refines half of each frame's lanes; a lane's bits do not depend on the
+    lanes beside it). Returns the launches per rank."""
     label = "sharded, world of two"
     out_dir = ROOT / "build" / "chip_smoke_sharded"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2383,32 +2403,15 @@ def world_of_two(dev, pd, depths, rgbs, K, gpu):
         shape, n_local, err = got["k6"]
         log(f"[{label}] rank {r}: K6 at D {shape} x {n_local} templates == its twin "
             f"(max abs err {err})")
-        worst_t = worst_r = 0.0
-        objb_apart = []
-        for b, (g, w) in enumerate(zip(got["poses"], want)):
-            gb = [p for p in g if p[0] == "objB"]
-            wb = [p for p in w if p[0] == "objB"]
-            if ([p[:2] for p in gb] != [p[:2] for p in wb] or any(
-                    np.abs(p[2][:3, 3] - q[2][:3, 3]).max() > SHARD_T_M
-                    or rot_deg(p[2][:3, :3], q[2][:3, :3]) > SHARD_DEG for p, q in zip(gb, wb))):
-                objb_apart.append(b)
-            g = [p for p in g if p[0] != "objB"]
-            w = [p for p in w if p[0] != "objB"]
-            if [p[:2] for p in g] != [p[:2] for p in w]:
-                raise AssertionError(f"[{label}] rank {r} frame {b}: {[p[:2] for p in g]} vs "
-                                     f"the unsharded {[p[:2] for p in w]}")
-            for p, q in zip(g, w):
-                worst_t = max(worst_t, float(np.abs(p[2][:3, 3] - q[2][:3, 3]).max()))
-                worst_r = max(worst_r, rot_deg(p[2][:3, :3], q[2][:3, :3]))
-        if worst_t > SHARD_T_M or worst_r > SHARD_DEG:
-            raise AssertionError(f"[{label}] rank {r}: poses {worst_t * 1e3:.4f} mm, "
-                                 f"{worst_r:.4f} deg from the unsharded ones")
-        log(f"[{label}] rank {r}: match record [{len(depths)}, 5, "
-            f"{match.shape[-1]}] equal to the unsharded one, bitwise; every class but objB "
-            f"on all {len(depths)} frames: same classes and templates, max |dt| "
-            f"{worst_t * 1e3:.4f} mm, max rotation {worst_r:.4f} deg; objB differs "
-            f"(count, template or beyond {SHARD_T_M * 1e3:g} mm / {SHARD_DEG:g} deg) in "
-            f"{len(objb_apart)} frames: {objb_apart}")
+        apart = [b for b, (g, w) in enumerate(zip(got["poses"], want))
+                 if [(c, t, p.tobytes(), res) for c, t, p, res in g]
+                 != [(c, t, p.tobytes(), res) for c, t, p, res in w]]
+        if apart:
+            raise AssertionError(f"[{label}] rank {r}: frames {apart} differ from the "
+                                 "unsharded ones (class, template, pose or residual bits)")
+        log(f"[{label}] rank {r}: match record [{len(depths)}, 5, {match.shape[-1]}] and every "
+            f"class's poses and residuals on all {len(depths)} frames (objB included) equal "
+            f"to the unsharded ones, bitwise ({sum(len(g) for g in want)} poses)")
         ts = got["times"]
         log(f"[{label}] rank {r} time detect_fused_batch: median "
             f"{statistics.median(ts[1:]):.2f} ms per B={len(depths)} batch (5 runs after 1 "
@@ -2635,6 +2638,223 @@ def limits_phase(dev, pd, depths, rgbs, gts, K, counted, gpu):
     return total
 
 
+# ----------------------------------------------------------------------
+# phase 15: batch invariance, on phases 3's and 4's detectors and frames,
+# phase 7's multi batches, phase 8's tick: a frame's answer on the card
+# is the same bits whatever batch it came in (every float sum of the
+# projective ICP is core/reduce.py fixed_sum; tests/test_torch_batch_size.py)
+# ----------------------------------------------------------------------
+
+BATCH_FRAMES = (0, 1, 31)
+# batches holding frames 0, 1 and 31 at positions 0, 1 and 31 and at the
+# ends of batches of 2 and 4
+BATCH_SLICES = (slice(0, 2), slice(0, 4), slice(30, 32), slice(28, 32), slice(0, 32))
+
+
+def flat_record(pd, depths, K, rgbs):
+    """One detect_fused_dispatch: its flat NMS record on the host and the
+    finalized Pose lists."""
+    handle = pd.detect_fused_dispatch(depths, K, rgbs)
+    return handle[0].cpu(), pd.detect_fused_finalize(handle)
+
+
+def pose_bits(poses):
+    """A frame's Pose list as exact values: ids, match, votes, residual and
+    the pose's bytes."""
+    return [(p.class_id, p.template_id, p.match_x, p.match_y, p.num_votes,
+             p.match_similarity, p.residual, p.pose.tobytes()) for p in poses]
+
+
+def alone_vs_batches(label, pd, depths, rgbs, K):
+    """Frames 0, 1 and 31 alone, in B = 2 and 4 (at the start, and for 31
+    at the end) and at positions 0, 1 and 31 of the B = 32 batch: the flat
+    record's rows and the Pose lists equal bitwise."""
+    def part(a, s):
+        return None if a is None else a[s]
+
+    alone = {f: flat_record(pd, depths[f:f + 1], K, part(rgbs, slice(f, f + 1)))
+             for f in BATCH_FRAMES}
+    held = []
+    for s in BATCH_SLICES:
+        flat, poses = flat_record(pd, depths[s], K, part(rgbs, s))
+        for f in BATCH_FRAMES:
+            if s.start <= f < s.stop:
+                pos = f - s.start
+                same_nan(f"[{label}] frame {f} at position {pos} of B={s.stop - s.start}: "
+                         "flat record vs the frame alone", flat[pos], alone[f][0][0])
+                if pose_bits(poses[pos]) != pose_bits(alone[f][1][0]):
+                    raise AssertionError(f"[{label}] frame {f} at position {pos} of B="
+                                         f"{s.stop - s.start}: Pose arrays != the frame alone")
+                held.append((f, s.stop - s.start, pos))
+    classes = {f: [p.class_id for p in alone[f][1][0]] for f in BATCH_FRAMES}
+    log(f"[{label}] frames alone == in the batch, bitwise (flat record and Pose arrays), "
+        f"(frame, B, position): {held}; detections alone {classes}")
+
+
+def multi_vs_batches(pd2, depths2, rgbs2, K):
+    """Phase 7's G=2 multi batches (the frames, then reversed): each batch's
+    flat record and Poses == detect_fused_batch of the same 32 frames, and
+    the reversed batch's row 31 - f == the first batch's row f, bitwise."""
+    label = "batch, multi"
+    depths_g = np.stack([depths2, depths2[::-1]])
+    rgbs_g = np.stack([rgbs2, rgbs2[::-1]])
+    handle = pd2.detect_fused_dispatch_multi(depths_g, K, rgbs_g)
+    flats = [h[0].cpu() for h in handle[1]]
+    got = pd2.detect_fused_finalize_multi(handle)
+    for g in range(2):
+        flat, poses = flat_record(pd2, depths_g[g], K, rgbs_g[g])
+        same_nan(f"[{label}] batch {g}: flat record vs detect_fused_batch's", flats[g], flat)
+        if [pose_bits(p) for p in got[g]] != [pose_bits(p) for p in poses]:
+            raise AssertionError(f"[{label}] batch {g}: Poses != detect_fused_batch's")
+    n = len(depths2)
+    same_nan(f"[{label}] the reversed batch's rows vs the first batch's",
+             flats[1].flip(0), flats[0])
+    log(f"[{label}] G=2 dispatch_multi: each batch == detect_fused_batch of its {n} frames "
+        f"and every frame at position f == at position {n - 1} - f, bitwise")
+
+
+def tick_vs_alone(pd, depths, rgbs, K):
+    """Phase 8's tick: each camera of StreamingDetector.process == its
+    frame alone, bitwise (the empty camera included)."""
+    from object_detector_6d_tpu_torch.api.streaming import StreamingDetector
+
+    label = "batch, streaming"
+    res = StreamingDetector(pd, n_cameras=len(depths)).process(depths, K, rgbs)
+    flat, _ = flat_record(pd, depths, K, rgbs)
+    for cam in range(len(depths)):
+        one, alone = flat_record(pd, depths[cam:cam + 1], K, rgbs[cam:cam + 1])
+        same_nan(f"[{label}] camera {cam}: flat record vs the frame alone", flat[cam], one[0])
+        if pose_bits(res[cam]) != pose_bits(alone[0]):
+            raise AssertionError(f"[{label}] camera {cam}: Poses != the frame alone")
+    log(f"[{label}] {len(depths)}-camera tick: every camera == its frame alone, bitwise "
+        f"(detections per camera {[len(r) for r in res]})")
+
+
+def trace_ops(pd, depths, rgbs, K):
+    """Device operations (kernels, copies, fills) launched inside each
+    detect.* span of one detect_fused_batch, from a torch.profiler trace:
+    ({span: count}, {trace event category: count})."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pd.detect_fused_batch(depths, K, rgbs)
+        torch.cuda.synchronize()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    spans = [(e["name"], e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("cat") == "user_annotation" and str(e.get("name")).startswith("detect.")]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    counts = {name: 0 for name, _, _ in spans}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ts = launched.get(e.get("args", {}).get("correlation"))
+            for name, t0, t1 in spans:
+                if ts is not None and t0 <= ts <= t1:
+                    counts[name] += 1
+    return counts, cats
+
+
+def batch_phase(dev, pd2, depths2, rgbs2, pd, depths, tick, K, counted, gpu):
+    """Phase 15. Returns the launches per kernel wrapper over its runs."""
+    for fn in counted:
+        fn.launches = 0
+    alone_vs_batches("batch, two-modality", pd2, depths2, rgbs2, K)
+    alone_vs_batches("batch, depth-only", pd, depths, None, K)
+    multi_vs_batches(pd2, depths2, rgbs2, K)
+    tick_vs_alone(*tick, K)
+    times = batch_times(pd2, depths2, K, rgbs2)
+    ops, cats = trace_ops(pd2, depths2, rgbs2, K)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[batch] {name} was not launched in phase 15")
+    log(f"[batch] time detect_fused_batch: median {statistics.median(times[1:]):.2f} ms per "
+        f"B={len(depths2)} two-modality batch (5 runs after 1 warm-up; {gpu}); runs "
+        f"{[round(t, 2) for t in times]}")
+    log(f"[batch] device operations per span of one batch (torch.profiler): {ops}; lift + "
+        f"ICP {ops.get('detect.lift_icp')}; trace event categories {cats}; {gpu}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 16: colour frames, whose three BGR channels differ (every other
+# phase runs gray x3, where K1's channel argmax ties everywhere):
+# tests/test_torch_limits_frame.py::test_colour_frames_equal_reference's
+# snowman frames and view
+# ----------------------------------------------------------------------
+
+T_COLOUR = (np.array([0.055, -0.022, -0.04]), np.array([-0.03, 0.04, 0.02]))
+
+
+def colour(gray):
+    """[H, W] u8 gray -> [H, W, 3] u8 BGR: blue the gray, green a dimmer
+    gray, red a gray with a sinusoidal pattern of its own."""
+    yy, xx = np.mgrid[:gray.shape[0], :gray.shape[1]]
+    g = gray.astype(np.float64)
+    red = 0.8 * g + 45 * np.sin(xx / 9.0) * np.cos(yy / 13.0) + 30
+    return np.clip(np.stack([g, 0.55 * g + 60, red], -1), 0, 255).astype(np.uint8)
+
+
+def colour_phase(dev, scenes, K, counted, gpu):
+    """Phase 16: the snowman trained by add_view on a coloured view on the
+    card and on the CPU (templates equal exactly), the match record of two
+    coloured 480x640 frames card == CPU bitwise, their poses card vs CPU
+    within XDEV_T_M / XDEV_DEG and on the truth. Returns the launches."""
+    from object_detector_6d_tpu_torch.api.detector import Detector
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+
+    label = "colour"
+    dep, gray, mask = scenes.snowman_scene()
+    rendered = [scenes.render_translated(dep, mask, K, t) for t in T_COLOUR]
+    depths = np.stack([r[0] for r in rendered])
+    bgrs = np.stack([colour(r[2]) for r in rendered])
+    for fn in counted:
+        fn.launches = 0
+    card, cpu = (PoseDetector(detector=Detector(), params=train_params(), model_points=512,
+                              device=d) for d in (dev, "cpu"))
+    for pd in (card, cpu):
+        if pd.add_view("obj", dep, K, mask.astype(np.uint8) * 255, rgb=colour(gray)) != 0:
+            raise AssertionError(f"[{label}] add_view on {pd.device} failed")
+    if template_fields(card.detector.class_templates["obj"]) != \
+            template_fields(cpu.detector.class_templates["obj"]):
+        raise AssertionError(f"[{label}] add_view templates card != cpu")
+    match_card_vs_cpu(label, card, depths, bgrs, K)
+    got = card.detect_fused_batch(depths, K, bgrs)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    want = cpu.detect_fused_batch(depths, K, bgrs)
+    worst_t = worst_r = 0.0
+    for b, (pg, pc) in enumerate(zip(got, want)):
+        if [p.class_id for p in pg] != [p.class_id for p in pc] or not pg:
+            raise AssertionError(f"[{label}] frame {b}: {[p.class_id for p in pg]} (cuda) vs "
+                                 f"{[p.class_id for p in pc]} (cpu)")
+        if np.abs(pg[0].pose[:3, 3] - T_COLOUR[b]).max() > GT_T_M:
+            raise AssertionError(f"[{label}] frame {b}: the snowman off its truth")
+        for a, c in zip(pg, pc):
+            worst_t = max(worst_t, float(np.abs(a.pose[:3, 3] - c.pose[:3, 3]).max()))
+            worst_r = max(worst_r, rot_deg(a.pose[:3, :3], c.pose[:3, :3]))
+    if worst_t > XDEV_T_M or worst_r > XDEV_DEG:
+        raise AssertionError(f"[{label}] card vs cpu: {worst_t * 1e3:.4f} mm, {worst_r:.4f} deg")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[{label}] {name} was not launched")
+    tps = card.detector.class_templates["obj"]
+    log(f"[{label}] add_view on a coloured view: {len(tps)} pyramid(s) of {len(tps[0])} "
+        f"templates card == cpu exactly; {len(depths)} coloured frames: the snowman on its "
+        f"truth, card vs cpu max |dt| {worst_t * 1e3:.4f} mm, max rotation {worst_r:.4f} deg; "
+        f"launches {launches}; {gpu}")
+    return launches
+
+
 def run(dev, gpu: str) -> None:
     from object_detector_6d_tpu_torch.api.detector import Detector
     from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
@@ -2682,6 +2902,7 @@ def run(dev, gpu: str) -> None:
     log(f"phases 2-5: {time.time() - t0:.1f} s")
 
     # phases 6-9: the host matcher, multi / many, streaming, parity
+    done = {}
     for name, phase in (
             ("host matcher", lambda: host_matcher_phase(dev, pd2, depths2, rgbs2, pd,
                                                         fb_depths, fallen[0], gpu)),
@@ -2689,7 +2910,7 @@ def run(dev, gpu: str) -> None:
             ("streaming", lambda: streaming_phase(dev, scenes, K, gpu)),
             ("parity", lambda: parity_phase(gpu))):
         t1 = time.time()
-        phase()
+        done[name] = phase()
         log(f"phase {name}: {time.time() - t1:.1f} s")
 
     # phase 10: train, store, evaluate
@@ -2717,9 +2938,20 @@ def run(dev, gpu: str) -> None:
     limits = limits_phase(dev, pd2, depths2, rgbs2, gts2, K, counted2, gpu)
     log(f"phase limits: {time.time() - t1:.1f} s; launches {limits}")
 
+    # phase 15: batch invariance (alone, B = 2, 4, 32, multi, streaming)
+    t1 = time.time()
+    batch = batch_phase(dev, pd2, depths2, rgbs2, pd, depths, done["streaming"], K, counted2,
+                        gpu)
+    log(f"phase batch: {time.time() - t1:.1f} s; launches {batch}")
+
+    # phase 16: colour frames
+    t1 = time.time()
+    coloured = colour_phase(dev, scenes, K, counted2, gpu)
+    log(f"phase colour: {time.time() - t1:.1f} s; launches {coloured}")
+
     for r in recs:
-        r["launches"] = (launches[r["name"]] + offline[r["name"]] + forms[r["name"]]
-                         + sharded[r["name"]] + limits[r["name"]])
+        r["launches"] = sum(ph[r["name"]] for ph in (launches, offline, forms, sharded, limits,
+                                                      batch, coloured))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(gpu)

@@ -308,8 +308,12 @@ def make_detect_program(
     With ``batch=None`` the sources are one frame ([H, W] depth, [H, W, 3]
     u8 BGR) and the outputs have no leading axis; with an int ``batch``
     they are [batch, ...] and any other leading size raises; ``batch=-1``
-    takes [B, ...] sources of any B (nothing in the program depends on B,
-    so PoseDetector caches one such program for every batch size). Outputs:
+    takes [B, ...] sources of any B (nothing in the program depends on B:
+    every float sum over a lane's points is a ``core/reduce.py``
+    ``fixed_sum`` tree, so a frame's output is the same bits alone and at
+    any position of any batch, tests/test_torch_batch_size.py and
+    chip_smoke.py phase 15; PoseDetector caches one such program for every
+    batch size). Outputs:
 
     - default: ``(packed [.., 5, K+1], poses [.., K, 4, 4] f32, res [.., K]
       f32, keep [.., K] bool)``; ``poses`` compose the template's
@@ -346,6 +350,10 @@ def make_detect_program(
     K_mat = np.asarray(K_mat, np.float64)
     fx, fy = float(np.float32(K_mat[0, 0])), float(np.float32(K_mat[1, 1]))
     cx, cy = float(np.float32(K_mat[0, 2])), float(np.float32(K_mat[1, 2]))
+    # the lift divides by fx, fy as the reference's XLA does (and PyTorch's
+    # CUDA division by a Python scalar): a product with the f32 reciprocal,
+    # the same bits on the card and the CPU
+    inv_fx, inv_fy = (float(np.float32(1.0) / np.float32(f)) for f in (fx, fy))
     win = lift_window
     dev = torch.device(device)
     qlevels = torch.tensor([0.25, 0.5, 0.75][:S], dtype=torch.float32, device=dev)
@@ -431,8 +439,8 @@ def make_detect_program(
         cxf = xs.to(torch.float32) + bw.to(torch.float32) / 2.0
         cyf = ys.to(torch.float32) + bh.to(torch.float32) / 2.0
         zq_s = torch.nan_to_num(zq, nan=1.0)
-        tx = zq_s * ((cxf - cx) / fx)[..., None]
-        ty = zq_s * ((cyf - cy) / fy)[..., None]
+        tx = zq_s * ((cxf - cx) * inv_fx)[..., None]
+        ty = zq_s * ((cyf - cy) * inv_fy)[..., None]
         target = torch.stack([tx, ty, zq_s], -1)  # [B, K, S, 3]
         t0 = target - views.anchors[tids][..., None, :]
         pose0 = torch.eye(4, dtype=torch.float32, device=z_img.device).repeat(B, K_cap, S, 1, 1)

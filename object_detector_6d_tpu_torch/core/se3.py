@@ -7,11 +7,32 @@ PPF) and the quaternion forms (device cluster NMS). Poses are
 batch axes. Matrix products run in full
 float32: ``torch.backends.cuda.matmul.allow_tf32`` is False by default
 and this package never turns it on.
+
+``apply``, ``rotate``, ``compose`` and ``exp`` sum their products over 3
+or 4 terms with ``core/reduce.py`` ``fixed_sum`` (``small_matmul``): a
+CUDA batched matmul or sum picks its kernel and order by the number of
+matrices, and a lane's bits then changed with the lanes beside it, and
+from the CPU's.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from object_detector_6d_tpu_torch.core.reduce import fixed_sum
+
+# 1/6 and 1/24 as float32 reciprocals: XLA, and PyTorch's CUDA division by
+# a Python scalar, divide by a constant as a product with its reciprocal
+_SIXTH = float(np.float32(1.0) / np.float32(6.0))
+_TWENTY_FOURTH = float(np.float32(1.0) / np.float32(24.0))
+
+
+def small_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A [..., m, k] @ B [..., k, n] (leading axes broadcast) for a small k:
+    the products A[..., i, j] B[..., j, l] summed over j by fixed_sum, so
+    the same bits for any leading shape on every device."""
+    return fixed_sum(A[..., :, :, None] * B[..., None, :, :], -2)
 
 
 def hat(w: torch.Tensor) -> torch.Tensor:
@@ -29,13 +50,13 @@ def hat(w: torch.Tensor) -> torch.Tensor:
 
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues: rotation vector [..., 3] -> rotation matrix [..., 3, 3]."""
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = fixed_sum(w * w, -1)
     theta = torch.sqrt(theta2 + 1e-32)
     small = theta2 < 1e-12
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / theta2)
+    a = torch.where(small, 1.0 - theta2 * _SIXTH, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 * _TWENTY_FOURTH, (1.0 - torch.cos(theta)) / theta2)
     W = hat(w)
-    WW = torch.matmul(W, W)
+    WW = small_matmul(W, W)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
     return eye + a[..., None, None] * W + b[..., None, None] * WW
 
@@ -115,19 +136,17 @@ class SE3:
 
     @staticmethod
     def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(A, B)
+        return small_matmul(A, B)
 
     @staticmethod
     def apply(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
         """Transform points [..., N, 3] by T [..., 4, 4]."""
-        R = T[..., :3, :3]
-        t = T[..., :3, 3]
-        return torch.matmul(pts, R.transpose(-1, -2)) + t[..., None, :]
+        return SE3.rotate(T, pts) + T[..., None, :3, 3]
 
     @staticmethod
     def rotate(T: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
         """Rotate direction vectors [..., N, 3] without translating."""
-        return torch.matmul(vecs, T[..., :3, :3].transpose(-1, -2))
+        return small_matmul(vecs, T[..., :3, :3].transpose(-1, -2))
 
     @staticmethod
     def to_quat(T: torch.Tensor) -> torch.Tensor:

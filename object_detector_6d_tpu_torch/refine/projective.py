@@ -6,7 +6,9 @@ scene's pixel grid; the scene point/normal stored there is its
 correspondence (a row gather instead of a nearest-neighbour search).
 Rejection: a per-level distance cap and a normal-compatibility gate.
 The solve is the centroid-conjugated point-to-plane linearization with
-an unrolled, Levenberg-damped 6x6 Cholesky.
+an unrolled, Levenberg-damped 6x6 Cholesky; its sums over points are
+``core/reduce.py`` ``fixed_sum`` trees, so a lane's bits do not depend
+on the lanes beside it (the reference's matmuls and sums, reordered).
 
 Everything is written once for a leading lane axis L (the reference
 ``vmap``s a single-lane function). Scenes are [S, H*W, C] packed rows
@@ -27,6 +29,7 @@ from typing import Sequence
 
 import torch
 
+from object_detector_6d_tpu_torch.core.reduce import fixed_sum
 from object_detector_6d_tpu_torch.core.se3 import SE3, cross
 
 
@@ -95,8 +98,8 @@ def _associate(pose, model_pc, mask, scenes, scene_of_lane, fx, fy, cx, cy,
         inb, q = _associate_window(u, v, inb, q, window)
     qp = q[..., :3]
     qn = q[..., 3:6]
-    d2 = torch.sum((mp - qp) ** 2, dim=-1)
-    ncos = torch.sum(mn * qn, dim=-1)
+    d2 = fixed_sum((mp - qp) ** 2, -1)
+    ncos = fixed_sum(mn * qn, -1)
     w = (mask & inb & (q[..., 6] > 0) & (d2 <= max_corr_dist * max_corr_dist)
          & (ncos >= min_normal_cos)).to(torch.float32)
     return qp, qn, w
@@ -125,23 +128,35 @@ def _associate_window(u, v, inb, q, window):
 
 
 def _gn_solve(pose, model_pc, qp, qn, w):
-    """One point-to-plane Gauss-Newton solve per lane on fixed pairs."""
+    """One point-to-plane Gauss-Newton solve per lane on fixed pairs.
+
+    Every sum over the point axis is a ``fixed_sum``, so a lane's bits do
+    not depend on how many lanes share the call. Two trees a solve: r does
+    not depend on the centroid c, so the first sums [w, mp w, |r| w] (5
+    channels) and the second, after c, [Jw_i J_j for i >= j, Jw r] (21 +
+    6 channels); A is mirrored from its lower triangle."""
     mp = SE3.apply(pose, model_pc[..., :3])
-    r = torch.sum((mp - qp) * qn, dim=-1)  # [L, n]
-    wsum = torch.clamp(torch.sum(w, dim=-1), min=1.0)  # [L]
-    c = torch.sum(mp * w[..., None], dim=-2) / wsum[:, None]  # [L, 3]
+    r = fixed_sum((mp - qp) * qn, -1)  # [L, n]
+    s1 = fixed_sum(torch.cat([w[..., None], mp * w[..., None], (torch.abs(r) * w)[..., None]],
+                             dim=-1), 1)  # [L, 5]
+    wsum = torch.clamp(s1[:, 0], min=1.0)  # [L]
+    c = s1[:, 1:4] / wsum[:, None]  # [L, 3]
     J = torch.cat([cross(mp - c[:, None, :], qn), qn], dim=-1)  # [L, n, 6]
     Jw = J * w[..., None]
-    A = torch.matmul(Jw.transpose(-1, -2), J)
-    b = -torch.matmul(Jw.transpose(-1, -2), r[..., None])[..., 0]
+    ti, tj = torch.tril_indices(6, 6, device=J.device)  # the 21 entries i >= j
+    s2 = fixed_sum(torch.cat([Jw[..., ti] * J[..., tj], Jw * r[..., None]], dim=-1), 1)
+    A = J.new_zeros((J.shape[0], 6, 6))
+    A[:, ti, tj] = s2[:, :21]
+    A[:, tj, ti] = s2[:, :21]
+    b = -s2[:, 21:]
     x = _chol_solve6(A, b)
     dT = SE3.exp(x)
     eye = torch.eye(3, dtype=pose.dtype, device=pose.device).expand(c.shape[0], 3, 3)
     shift = SE3.from_rt(eye, c)
     unshift = SE3.from_rt(eye, -c)
     new_pose = SE3.compose(shift, SE3.compose(dT, SE3.compose(unshift, pose)))
-    residual = torch.sum(torch.abs(r) * w, dim=-1) / wsum
-    return new_pose, torch.linalg.vector_norm(x, dim=-1), residual
+    residual = s1[:, 4] / wsum
+    return new_pose, torch.sqrt(fixed_sum(x * x, 1)), residual
 
 
 def _proj_step(pose, model_pc, mask, scenes, scene_of_lane, fx, fy, cx, cy,
