@@ -8,10 +8,12 @@ between the card and the CPU? One CUDA card.
 
 A stage is one floating-point result of a torch call made inside the
 detect program's lift + ICP (``lift_and_refine``) and cluster
-(``make_cluster_stage``) stages, recorded by a TorchFunctionMode and named
-by its order, the function and the port's file:line that made it (the
-caller first); the match record [5, K+1] comes before them, and the flat
-NMS record and the Pose arrays after them.
+(``make_cluster_stage``) stages, recorded by a TorchFunctionMode, or of
+one of ``core/exact.py``'s helpers called there (the helper is the
+stage: its torch calls differ by device by design); it is named by its
+order, the function, the port's file:line that made it and the line of
+the stage's own closure; the match record [5, K+1] comes before them,
+and the flat NMS record and the Pose arrays after them.
 
 Batch mode: frame 0 at position 0 and frame B-1 at the end of a batch of
 B = 2, 4 and 32 through ``PoseDetector.detect_fused_batch``, each held
@@ -24,18 +26,23 @@ them: A and b by torch.matmul, the other sums by torch.sum), which keeps
 the old fault visible. Both workloads of chip_smoke.py run (``--quick``:
 the depth-only one at B = 1, 2, 4).
 
-Card-vs-CPU stage mode (``--device cpu``): chip_smoke.py phase 4's
-depth-only frames 0 and 1 (seed 1) at B = 2 on the card and through a
-CPU PoseDetector. Every stage is held twice: (a) the card's call
-re-run on the CPU on copies of the card's own inputs, which names every
-call whose CPU result differs from the card's on the same inputs; (b)
-the card's run against the CPU run, which names the first stage where the
-two runs part, for the frame and for the lanes of its objB hypotheses.
+Card-vs-CPU stage mode (``--device cpu``): chip_smoke.py phase 3's
+two-modality and phase 4's depth-only frames 0 and 1 at B = 2 on the
+card and through a CPU PoseDetector. Every stage is held twice: (a) the
+card's call re-run on the CPU on copies of the card's own inputs, which
+names every call whose CPU result differs from the card's on the same
+inputs; (b) the card's run against the CPU run, which names the first
+stage where the two runs part, for the frame and for the lanes of its
+objB hypotheses. The same two holds run over every call inside
+``clean_depth`` (phase 11's noisy snowman frame) and PPF's
+``_train_pairs`` and ``_match_refs`` (phase 11's snowman model and
+scene).
 
 ``--time``: ms per B=32 two-modality batch (host clock, median of 5 after
-one warm-up) and the device operations (kernels, copies, fills) launched
+one warm-up), the device operations (kernels, copies, fills) launched
 inside the ``detect.lift_icp`` and ``detect.cluster`` spans of one batch
-(torch.profiler trace). ``--root DIR`` imports the port from DIR (an
+(torch.profiler trace) and ``clean_depth``'s ms per 480x640 frame (CUDA
+events). ``--root DIR`` imports the port from DIR (an
 unpacked copy of another commit), so that two commits are timed in turns
 by one script. The last line is one JSON object.
 """
@@ -57,7 +64,13 @@ from torch.overrides import TorchFunctionMode
 import chip_smoke as cs
 
 BATCHES = (1, 2, 4, 32)
-REGIONS = ("lift_and_refine", "cluster")  # detect_program.py's stage closures
+# the recorded regions: functions (by name) of the port's files
+DETECT_REGIONS = {"api/detect_program.py": ("lift_and_refine", "cluster")}
+TOOL_REGIONS = {"geom/cleaner.py": ("clean_depth",),
+                "ppf/detector.py": ("_train_pairs", "_match_refs")}
+# core/exact.py's helpers: each is one stage, re-run whole on the CPU
+HELPERS = ("sqrt_rn", "sincos_rn", "sin_rn", "cos_rn", "exp_rn", "arccos_rn", "atan2_rn",
+           "fma_rn", "fma_matmul", "norm3", "norm4", "sincos_device")
 
 
 def gn_solve_matmul(pose, model_pc, qp, qn, w):
@@ -85,75 +98,148 @@ def gn_solve_matmul(pose, model_pc, qp, qn, w):
     return new_pose, torch.linalg.vector_norm(x, dim=-1), residual
 
 
-def port_site(pkg: str):
-    """(file:line of the port's frames that made the current call, caller
-    first, at most two; whether the call is inside a REGIONS stage)."""
+def port_site(pkg: str, regions):
+    """(the port's file:line that made the current call, then the line of
+    the region function it ran in; whether it ran inside a region)."""
     f = sys._getframe(2)
-    sites, inside = [], False
+    first = None
     while f is not None:
         fn = f.f_code.co_filename
         if fn.startswith(pkg):
-            if len(sites) < 2:
-                sites.append(f"{os.path.relpath(fn, pkg)}:{f.f_lineno}")
-            if f.f_code.co_name in REGIONS and fn.endswith("detect_program.py"):
-                inside = True
-                break
+            rel = os.path.relpath(fn, pkg)
+            site = f"{rel}:{f.f_lineno}"
+            first = first or site
+            if f.f_code.co_name in regions.get(rel, ()):
+                return (first if first == site else f"{first} < {site}"), True
         f = f.f_back
-    return " < ".join(sites), inside
+    return first or "", False
 
 
 class StageRecorder(TorchFunctionMode):
     """Records, for the frames at ``positions`` of a batch of ``B``, every
-    floating-point tensor that a torch call inside a REGIONS stage returns:
-    the rows of that frame where the leading axis is a multiple of B
-    (every lane and frame axis of the program is frame-major), the whole
-    tensor where it is small. With ``on_cpu``, each such call is also run on
-    CPU copies of its inputs and the first calls whose CPU result differs
-    are kept in ``xdev``."""
+    floating-point tensor that a torch call or a ``core/exact.py`` helper
+    inside a region returns (``regions``: DETECT_REGIONS by default): the
+    rows of that frame where the leading axis is a multiple of B (every
+    lane and frame axis of the program is frame-major), the whole tensor
+    where it is small. With ``on_cpu``, each such call is also run on CPU
+    copies of its inputs and the calls whose CPU result differs are kept
+    in ``xdev``. The torch calls inside a helper are not recorded: the
+    helper's result is the stage."""
 
-    def __init__(self, B: int, positions, on_cpu: bool = False):
+    def __init__(self, B: int, positions, on_cpu: bool = False, regions=None):
         super().__init__()
         import object_detector_6d_tpu_torch as port
 
         self.pkg = str(pathlib.Path(port.__file__).parent)
         self.B, self.positions, self.on_cpu = B, tuple(positions), on_cpu
+        self.regions = DETECT_REGIONS if regions is None else regions
         self.stages = {p: [] for p in self.positions}
         self.xdev = []  # (stage, max |card - cpu|, differing share)
         self.n_checked = 0
+        self.in_helper = 0
+        self.patched = []
+
+    def __enter__(self):
+        self._patch_helpers()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.patched:
+            setattr(mod, name, fn)
+        self.patched = []
+        return super().__exit__(*exc)
+
+    def _patch_helpers(self):
+        """Every module of the port that holds a core/exact.py helper gets
+        a recording wrapper in its place, until __exit__."""
+        from object_detector_6d_tpu_torch.core import exact
+
+        helpers = {id(getattr(exact, n)) for n in HELPERS}
+        wrapped = {}
+        for mod in [m for n, m in sys.modules.items()
+                    if n.startswith("object_detector_6d_tpu_torch") and m is not None]:
+            for name, fn in list(vars(mod).items()):
+                if id(fn) in helpers:
+                    w = wrapped.setdefault(id(fn), self._wrap(fn))
+                    self.patched.append((mod, name, fn))
+                    setattr(mod, name, w)
+
+    def _wrap(self, fn):
+        def helper(*args, **kwargs):
+            if self.in_helper:
+                return fn(*args, **kwargs)
+            site, inside = port_site(self.pkg, self.regions)
+            self.in_helper += 1  # neither the helper's calls nor the recording are stages
+            try:
+                out = fn(*args, **kwargs)
+                if inside:
+                    self._keep(fn, fn.__name__, site, args, kwargs, out)
+            finally:
+                self.in_helper -= 1
+            return out
+        return helper
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        site, inside = port_site(self.pkg)
+        if self.in_helper:
+            return func(*args, **kwargs)
+        site, inside = port_site(self.pkg, self.regions)
         if not inside:
             return func(*args, **kwargs)
         name = getattr(func, "__name__", str(func))
-        cpu_args = None
-        if self.on_cpu and not name.endswith("_") and name != "__setitem__":
-            cpu_args = torch.utils._pytree.tree_map(_to_cpu, (args, kwargs))
+        rerun = self.on_cpu and not name.endswith("_") and name != "__setitem__"
+        cpu = torch.utils._pytree.tree_map(_to_cpu, (args, kwargs)) if rerun else None
         out = func(*args, **kwargs)
-        if not (isinstance(out, torch.Tensor) and out.is_floating_point() and out.dim() > 0):
-            return out
-        stage = f"{len(self.stages[self.positions[0]]):05d} {name} {site}"
-        lead = out.shape[0]
-        for p in self.positions:
-            if lead % self.B == 0:
-                rows = lead // self.B
-                part = out[p * rows:(p + 1) * rows]
-            else:
-                part = out
-            whole = out if out.numel() <= 64 else None
-            self.stages[p].append((stage, part.detach().clone(), whole if whole is None
-                                   else whole.detach().clone(), tuple(out.shape)))
-        if cpu_args is not None and out.device.type != "cpu":
-            self.n_checked += 1
-            want = func(*cpu_args[0], **cpu_args[1])
-            got = out.detach().cpu()
-            if isinstance(want, torch.Tensor) and want.shape == got.shape and \
-                    not torch.equal(torch.nan_to_num(got, nan=7e7), torch.nan_to_num(want, nan=7e7)):
-                d = (got.double() - want.double()).abs().nan_to_num(0.0)
-                share = float((got != want).float().mean())
-                self.xdev.append((stage, float(d.max()), share))
+        self._keep(func if rerun else None, name, site, *(cpu or (None, None)), out,
+                   on_copies=True)
         return out
+
+    @staticmethod
+    def _on_card(o) -> bool:
+        return isinstance(o, torch.Tensor) and o.device.type != "cpu"
+
+    def _keep(self, fn, name, site, args, kwargs, out, on_copies=False):
+        """Record ``out`` (a tensor or a tuple of them) as stages; with
+        ``on_cpu``, re-run ``fn`` on CPU copies of its inputs (``args``
+        already are copies when ``on_copies``) and keep what differs."""
+        outs = out if isinstance(out, tuple) else (out,)
+        if not any(isinstance(o, torch.Tensor) and o.is_floating_point() and o.dim() > 0
+                   for o in outs):
+            return
+        want = None
+        if self.on_cpu and fn is not None and any(self._on_card(o) for o in outs):
+            if not on_copies:
+                args, kwargs = torch.utils._pytree.tree_map(_to_cpu, (args, kwargs))
+            self.in_helper += 1  # the re-run's own calls are not stages
+            try:
+                want = fn(*args, **kwargs)
+            finally:
+                self.in_helper -= 1
+            want = want if isinstance(want, tuple) else (want,)
+        for k, o in enumerate(outs):
+            if not (isinstance(o, torch.Tensor) and o.is_floating_point() and o.dim() > 0):
+                continue
+            tag = name if len(outs) == 1 else f"{name}[{k}]"
+            stage = f"{len(self.stages[self.positions[0]]):05d} {tag} {site}"
+            lead = o.shape[0]
+            for p in self.positions:
+                if lead % self.B == 0:
+                    rows = lead // self.B
+                    part = o[p * rows:(p + 1) * rows]
+                else:
+                    part = o
+                whole = o if o.numel() <= 64 else None
+                self.stages[p].append((stage, part.detach().clone(), whole if whole is None
+                                       else whole.detach().clone(), tuple(o.shape)))
+            if want is None:
+                continue
+            self.n_checked += 1
+            got, w = o.detach().cpu(), want[k]
+            if isinstance(w, torch.Tensor) and w.shape == got.shape and \
+                    not torch.equal(torch.nan_to_num(got, nan=7e7), torch.nan_to_num(w, nan=7e7)):
+                d = (got.double() - w.double()).abs().nan_to_num(0.0)
+                share = float((got != w).float().mean())
+                self.xdev.append((stage, float(d.max()), share))
 
 
 def _to_cpu(a):
@@ -264,8 +350,8 @@ def final_pose_gaps(pd, got, want, match_row):
     import object_detector_6d_tpu_torch.api.detect_program as dp
 
     lines = pathlib.Path(dp.__file__).read_text().splitlines()
-    line = next(i + 1 for i, t in enumerate(lines) if "final = torch.matmul(" in t)
-    stage = next(i for i, s in enumerate(got) if s[0].endswith(f"detect_program.py:{line}"))
+    line = next(i + 1 for i, t in enumerate(lines) if "final = SE3.compose(" in t)
+    stage = [i for i, s in enumerate(got) if s[0].endswith(f"detect_program.py:{line}")][-1]
     a, b = got[stage][1][0].cpu().double(), want[stage][1][0].cpu().double()
     bank = pd.detector.get_bank()
     out = []
@@ -278,23 +364,29 @@ def final_pose_gaps(pd, got, want, match_row):
     return out
 
 
-def xdev_mode(pd, depths, K, gpu):
-    """Card-vs-CPU stage mode on phase 4's depth-only frames 0 and 1."""
+def by_site(xdev):
+    """The differing calls of a recorder, by function and site: (calls, max
+    |diff|, largest differing share)."""
+    sites = {}
+    for stage, dmax, share in xdev:
+        key = stage.split(" ", 1)[1]
+        n, dm, sh = sites.get(key, (0, 0.0, 0.0))
+        sites[key] = (n + 1, max(dm, dmax), max(sh, share))
+    return sites
+
+
+def xdev_mode(label, pd, depths, rgbs, K, gpu):
+    """Card-vs-CPU stage mode on a workload's frames 0 and 1."""
     from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
 
-    label = "card vs cpu"
     cpu_pd = PoseDetector(detector=pd.detector, params=pd.params,
                           model_points=pd.model_points, device="cpu")
     cpu_pd.views = pd.views
     d = depths[:2]
-    card, crow = record_run(pd, d, None, K, (0, 1), on_cpu=True)
-    cpu, prow = record_run(cpu_pd, d, None, K, (0, 1))
-    sites = {}
-    for stage, dmax, share in card.xdev:
-        site = stage.split(" ", 2)[1:]
-        key = " ".join(site)
-        n, dm, sh = sites.get(key, (0, 0.0, 0.0))
-        sites[key] = (n + 1, max(dm, dmax), max(sh, share))
+    rgb = None if rgbs is None else rgbs[:2]
+    card, crow = record_run(pd, d, rgb, K, (0, 1), on_cpu=True)
+    cpu, prow = record_run(cpu_pd, d, rgb, K, (0, 1))
+    sites = by_site(card.xdev)
     cs.log(f"[{label}] (a) {len(card.xdev)} of {card.n_checked} calls on the card differ from "
            f"the same call on the CPU on the card's own inputs; by function and site "
            f"(calls, max |diff|, largest differing share): {sites}; first calls "
@@ -320,18 +412,71 @@ def xdev_mode(pd, depths, K, gpu):
                 [float(np.abs(a.pose[:3, 3] - b.pose[:3, 3]).max()) * 1e3
                  for a, b in zip(c, g)] + [0.0])
         slots = final_pose_gaps(pd, card.stages[f], cpu.stages[f], crow[f][0])
+        flat_eq = torch.equal(torch.nan_to_num(crow[f][1], nan=7e7),
+                              torch.nan_to_num(prow[f][1], nan=7e7))
+        poses_eq = pose_arrays(crow[f][2]) == pose_arrays(prow[f][2])
         res[f"frame {f}"] = {"stages": n, "differing": len(differ), "unpaired": unpaired,
                              "first": differ[0] if differ else None,
                              "objB_lanes": lanes, "first_on_objB_lanes": first_b,
                              "match_equal": torch.equal(crow[f][0], prow[f][0]),
+                             "flat_equal": flat_eq, "poses_equal": poses_eq,
                              "pose_gap_mm": gap, "slots_apart": slots}
         cs.log(f"[{label}] (b) frame {f}: {len(differ)} of {n} stages differ ({unpaired} "
                f"unpaired); first {differ[0] if differ else None}; next {differ[1:6]}; on "
                f"objB's coarse lanes {lanes} first {first_b}; match record equal "
-               f"{res[f'frame {f}']['match_equal']}; card vs cpu poses (mm, or counts) {gap}; "
-               f"hypotheses whose refined pose differs (slot, class, template, x, y, mm) "
-               f"{slots}")
+               f"{res[f'frame {f}']['match_equal']}, flat record equal {flat_eq}, Pose arrays "
+               f"equal {poses_eq}; card vs cpu poses (mm, or counts) {gap}; hypotheses whose "
+               f"refined pose differs (slot, class, template, x, y, mm) {slots}")
     return res
+
+
+def stage_xdev(label, run, dev, gpu):
+    """Card-vs-CPU stage mode over one call of a depth tool: ``run(device)``
+    under TOOL_REGIONS, (a) every card call re-run on the CPU on its own
+    inputs, (b) the card's run against the CPU's, stage by stage."""
+    card = StageRecorder(1, (0,), on_cpu=True, regions=TOOL_REGIONS)
+    with card:
+        run(dev)
+    cpu = StageRecorder(1, (0,), regions=TOOL_REGIONS)
+    with cpu:
+        run(torch.device("cpu"))
+    sites = by_site(card.xdev)
+    n, differ, unpaired = compare_stages(card.stages[0], cpu.stages[0])
+    cs.log(f"[{label}] (a) {len(card.xdev)} of {card.n_checked} calls on the card differ from "
+           f"the same call on the CPU on the card's own inputs; by function and site: {sites}; "
+           f"(b) {len(differ)} of {n} stages of the two runs differ ({unpaired} unpaired); first "
+           f"{differ[0] if differ else None}; next {differ[1:4]}; {gpu}")
+    return {"calls": card.n_checked, "calls_differing": len(card.xdev), "sites": sites,
+            "stages": n, "differing": len(differ), "first": differ[0] if differ else None}
+
+
+def tools_xdev(dev, gpu):
+    """Stage mode over clean_depth and PPF's training and matching, on
+    chip_smoke.py phase 11's inputs (PPF matches both devices against the
+    CPU's trained tables, so that the two runs take the same inputs)."""
+    from object_detector_6d_tpu_torch.geom.cleaner import clean_depth
+    from object_detector_6d_tpu_torch.ppf import detector as ppf
+
+    scenes = cs.scenes_module()
+    noisy = cs.noisy_snowman(scenes)
+    model, scene, _ = cs.ppf_inputs(scenes)
+    trained = ppf.PPFDetector(device="cpu")
+    trained.train_model(model)
+
+    def match(d):
+        det = ppf.PPFDetector(device=str(d))
+        for k in ("model_sampled", "model_diameter", "_keys_sorted", "_vals_i", "_vals_alpha"):
+            setattr(det, k, getattr(trained, k))
+        return det.match(scene)
+
+    return {
+        "clean_depth": stage_xdev("clean_depth card vs cpu",
+                                  lambda d: clean_depth(noisy, device=d), dev, gpu),
+        "ppf train": stage_xdev("ppf train card vs cpu", lambda d: ppf._train_pairs(
+            torch.as_tensor(trained.model_sampled, device=d), trained._dist_step(),
+            trained.num_angles), dev, gpu),
+        "ppf match": stage_xdev("ppf match card vs cpu", match, dev, gpu),
+    }
 
 
 def time_mode(dev, gpu):
@@ -349,11 +494,16 @@ def time_mode(dev, gpu):
     ms = statistics.median(times[1:])
     counts, cats = cs.trace_ops(pd2, depths2, rgbs2, K)
     import object_detector_6d_tpu_torch as port
+    from object_detector_6d_tpu_torch.geom.cleaner import clean_depth
 
+    frame = torch.as_tensor(cs.noisy_snowman(scenes), device=dev)
+    clean_ms = cs.cuda_ms(lambda: clean_depth(frame))
     cs.log(f"[time] {port.__file__}: median {ms:.2f} ms per B={cs.B} two-modality batch "
            f"(5 runs after 1 warm-up; runs {[round(t, 2) for t in times]}); device operations "
-           f"per span of one batch {counts}; trace event categories {cats}; {gpu}")
-    return {"package": port.__file__, "batch_ms": ms, "runs_ms": times, "device_ops": counts}
+           f"per span of one batch {counts}; trace event categories {cats}; clean_depth "
+           f"{clean_ms:.4f} ms per 480x640 frame (CUDA events); {gpu}")
+    return {"package": port.__file__, "batch_ms": ms, "runs_ms": times, "device_ops": counts,
+            "clean_depth_ms": clean_ms}
 
 
 def main() -> int:
@@ -390,7 +540,13 @@ def main() -> int:
     if args.device is not None:
         if torch.device(args.device).type != "cpu":
             raise SystemExit("--device takes cpu")
-        res["card vs cpu"] = xdev_mode(pd1, depths1, K, gpu)
+        res["card vs cpu"] = xdev_mode("depth-only card vs cpu", pd1, depths1, None, K, gpu)
+        if not args.quick:
+            pd2 = cs.train(cs.two_modality_bank(), dev, scenes, K)
+            depths2, rgbs2, _ = cs.make_frames(scenes, K, n, seed=cs.SEED2)
+            res["two-modality card vs cpu"] = xdev_mode("two-modality card vs cpu", pd2,
+                                                        depths2, rgbs2, K, gpu)
+            res["tools card vs cpu"] = tools_xdev(dev, gpu)
     else:
         if not args.quick:
             pd2 = cs.train(cs.two_modality_bank(), dev, scenes, K)

@@ -27,7 +27,9 @@ import torch
 from torch.profiler import record_function
 
 from object_detector_6d_tpu_torch.core.config import ICPParams
-from object_detector_6d_tpu_torch.core.se3 import SE3
+from object_detector_6d_tpu_torch.core.exact import norm3, norm4
+from object_detector_6d_tpu_torch.core.reduce import fixed_sum
+from object_detector_6d_tpu_torch.core.se3 import SE3, small_matmul
 from object_detector_6d_tpu_torch.match import program as mp
 from object_detector_6d_tpu_torch.ops.geometry import FusedScene, planes_to_scene8
 from object_detector_6d_tpu_torch.parallel.sharding import all_gather_cat, axis_size
@@ -166,9 +168,9 @@ def make_cluster_stage(K_cap: int, rot_thr_rad: float = float(np.deg2rad(15.0)))
 
         # pairwise compatibility (rotation via quaternion dot:
         # angle <= thr  <=>  |q_i . q_j| >= cos(thr/2))
-        qq = torch.matmul(q_s, q_s.transpose(1, 2))
+        qq = small_matmul(q_s, q_s.transpose(1, 2))
         qd = torch.abs(qq) >= cos_half
-        td = torch.linalg.vector_norm(t_s[:, :, None] - t_s[:, None, :], dim=-1) <= trans_thr
+        td = norm3(t_s[:, :, None] - t_s[:, None, :]) <= trans_thr
         compat0 = (qd & td & (cls_s[:, :, None] == cls_s[:, None, :])
                    & valid_s[:, :, None] & valid_s[:, None, :])
 
@@ -189,14 +191,13 @@ def make_cluster_stage(K_cap: int, rot_thr_rad: float = float(np.deg2rad(15.0)))
         cnt = Mf.sum(-1)
         denom = torch.clamp(cnt, min=1.0)
         votes_tot = (M * votes_s[:, None, :]).sum(-1)
-        res_mean = (Mf * res_s[:, None, :]).sum(-1) / denom
+        res_mean = fixed_sum(Mf * res_s[:, None, :], -1) / denom
         sim_max = torch.max(torch.where(M, sim_s[:, None, :], float("-inf")), dim=-1).values
         sign = torch.sign(qq)
         sign = torch.where(sign == 0, 1.0, sign)  # hemisphere-align to rep
-        q_mean = ((Mf * sign)[..., None] * q_s[:, None, :, :]).sum(2)
-        q_mean = q_mean / torch.clamp(
-            torch.linalg.vector_norm(q_mean, dim=-1, keepdim=True), min=1e-32)
-        t_mean = (Mf[..., None] * t_s[:, None, :, :]).sum(2) / denom[..., None]
+        q_mean = fixed_sum((Mf * sign)[..., None] * q_s[:, None, :, :], 2)
+        q_mean = q_mean / torch.clamp(norm4(q_mean, keepdim=True), min=1e-32)
+        t_mean = fixed_sum(Mf[..., None] * t_s[:, None, :, :], 2) / denom[..., None]
         pose_mean = SE3.from_quat(q_mean, t_mean)
 
         # clusters sorted by total votes (stable: creation order ties)
@@ -522,7 +523,7 @@ def make_detect_program(
             best_res = torch.full_like(best_res, float("inf")).scatter(1, sel, res_f)
             best_pose = best_pose.scatter(
                 1, sel[..., None, None].expand(B, M_fine, 4, 4), poses2)
-        final = torch.matmul(best_pose, views.view_poses[tids])
+        final = SE3.compose(best_pose, views.view_poses[tids])
         keep_out = keep & torch.isfinite(best_res)
         # debug mode only (no sync otherwise): NaN in a KEPT pose is a bug,
         # NaN is legal only as the masked-invalid value inside the program

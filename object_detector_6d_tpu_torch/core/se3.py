@@ -8,11 +8,13 @@ batch axes. Matrix products run in full
 float32: ``torch.backends.cuda.matmul.allow_tf32`` is False by default
 and this package never turns it on.
 
-``apply``, ``rotate``, ``compose`` and ``exp`` sum their products over 3
-or 4 terms with ``core/reduce.py`` ``fixed_sum`` (``small_matmul``): a
-CUDA batched matmul or sum picks its kernel and order by the number of
-matrices, and a lane's bits then changed with the lanes beside it, and
-from the CPU's.
+``apply``, ``rotate``, ``compose``, ``inverse`` and ``exp`` sum their
+products over 3 or 4 terms with ``core/reduce.py`` ``fixed_sum``
+(``small_matmul``): a CUDA batched matmul or sum picks its kernel and
+order by the number of matrices, and a lane's bits then changed with the
+lanes beside it, and from the CPU's. Their square roots, sines, cosines,
+arccosines and quaternion norms are ``core/exact.py``'s, the same bits
+on every device.
 """
 
 from __future__ import annotations
@@ -20,11 +22,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from object_detector_6d_tpu_torch.core.exact import (arccos_rn, norm4, sin_rn, sincos_rn,
+                                                      sqrt_rn)
 from object_detector_6d_tpu_torch.core.reduce import fixed_sum
 
-# 1/6 and 1/24 as float32 reciprocals: XLA, and PyTorch's CUDA division by
-# a Python scalar, divide by a constant as a product with its reciprocal
+# 1/6, 1/12 and 1/24 as float32 reciprocals: XLA, and PyTorch's CUDA
+# division by a Python scalar, divide by a constant as a product with its
+# reciprocal
 _SIXTH = float(np.float32(1.0) / np.float32(6.0))
+_TWELFTH = float(np.float32(1.0) / np.float32(12.0))
 _TWENTY_FOURTH = float(np.float32(1.0) / np.float32(24.0))
 
 
@@ -48,13 +54,16 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
-def so3_exp(w: torch.Tensor) -> torch.Tensor:
-    """Rodrigues: rotation vector [..., 3] -> rotation matrix [..., 3, 3]."""
+def so3_exp(w: torch.Tensor, sincos=None) -> torch.Tensor:
+    """Rodrigues: rotation vector [..., 3] -> rotation matrix [..., 3, 3].
+    ``sincos`` gives (sin, cos) of the angle (core/exact.py; by default
+    the correctly rounded ``sincos_rn``)."""
     theta2 = fixed_sum(w * w, -1)
-    theta = torch.sqrt(theta2 + 1e-32)
+    theta = sqrt_rn(theta2 + 1e-32)
     small = theta2 < 1e-12
-    a = torch.where(small, 1.0 - theta2 * _SIXTH, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 * _TWENTY_FOURTH, (1.0 - torch.cos(theta)) / theta2)
+    sin, cos = (sincos or sincos_rn)(theta)
+    a = torch.where(small, 1.0 - theta2 * _SIXTH, sin / theta)
+    b = torch.where(small, 0.5 - theta2 * _TWENTY_FOURTH, (1.0 - cos) / theta2)
     W = hat(w)
     WW = small_matmul(W, W)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
@@ -65,7 +74,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix [..., 3, 3] -> rotation vector [..., 3]."""
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
-    theta = torch.arccos(cos_theta)
+    theta = arccos_rn(cos_theta)
     vee = torch.stack(
         [
             R[..., 2, 1] - R[..., 1, 2],
@@ -75,8 +84,8 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     small = theta < 1e-6
-    scale = torch.where(small, 0.5 + theta ** 2 / 12.0,
-                        theta / (2.0 * torch.sin(torch.where(small, 1.0, theta))))
+    scale = torch.where(small, 0.5 + theta * theta * _TWELFTH,
+                        theta / (2.0 * sin_rn(torch.where(small, 1.0, theta))))
     return vee * scale[..., None]
 
 
@@ -119,10 +128,10 @@ class SE3:
         return torch.cat([top, bottom], dim=-2)
 
     @staticmethod
-    def exp(twist: torch.Tensor) -> torch.Tensor:
+    def exp(twist: torch.Tensor, sincos=None) -> torch.Tensor:
         """Twist [..., 6] (rotation w, translation v) -> [..., 4, 4];
         translation taken verbatim (the ICP's linearized update)."""
-        return SE3.from_rt(so3_exp(twist[..., :3]), twist[..., 3:])
+        return SE3.from_rt(so3_exp(twist[..., :3], sincos), twist[..., 3:])
 
     @staticmethod
     def log(T: torch.Tensor) -> torch.Tensor:
@@ -132,7 +141,7 @@ class SE3:
     @staticmethod
     def inverse(T: torch.Tensor) -> torch.Tensor:
         Rt = T[..., :3, :3].transpose(-1, -2)
-        return SE3.from_rt(Rt, -torch.matmul(Rt, T[..., :3, 3, None])[..., 0])
+        return SE3.from_rt(Rt, -small_matmul(Rt, T[..., :3, 3, None])[..., 0])
 
     @staticmethod
     def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -158,19 +167,19 @@ class SE3:
         m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
         tr = m00 + m11 + m22
         zero = torch.zeros_like(tr)
-        qw0 = torch.sqrt(torch.maximum(zero, 1.0 + tr)) / 2
+        qw0 = sqrt_rn(torch.maximum(zero, 1.0 + tr)) / 2
         q0 = torch.stack([qw0, (m21 - m12) / (4 * qw0 + 1e-32),
                           (m02 - m20) / (4 * qw0 + 1e-32),
                           (m10 - m01) / (4 * qw0 + 1e-32)], dim=-1)
-        qx1 = torch.sqrt(torch.maximum(zero, 1.0 + m00 - m11 - m22)) / 2
+        qx1 = sqrt_rn(torch.maximum(zero, 1.0 + m00 - m11 - m22)) / 2
         q1 = torch.stack([(m21 - m12) / (4 * qx1 + 1e-32), qx1,
                           (m01 + m10) / (4 * qx1 + 1e-32),
                           (m02 + m20) / (4 * qx1 + 1e-32)], dim=-1)
-        qy2 = torch.sqrt(torch.maximum(zero, 1.0 - m00 + m11 - m22)) / 2
+        qy2 = sqrt_rn(torch.maximum(zero, 1.0 - m00 + m11 - m22)) / 2
         q2 = torch.stack([(m02 - m20) / (4 * qy2 + 1e-32),
                           (m01 + m10) / (4 * qy2 + 1e-32), qy2,
                           (m12 + m21) / (4 * qy2 + 1e-32)], dim=-1)
-        qz3 = torch.sqrt(torch.maximum(zero, 1.0 - m00 - m11 + m22)) / 2
+        qz3 = sqrt_rn(torch.maximum(zero, 1.0 - m00 - m11 + m22)) / 2
         q3 = torch.stack([(m10 - m01) / (4 * qz3 + 1e-32),
                           (m02 + m20) / (4 * qz3 + 1e-32),
                           (m12 + m21) / (4 * qz3 + 1e-32), qz3], dim=-1)
@@ -178,13 +187,13 @@ class SE3:
         cond1 = ((m00 >= m11) & (m00 >= m22))[..., None]
         cond2 = (m11 >= m22)[..., None]
         q = torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3)))
-        q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+        q = q / norm4(q, keepdim=True)
         return torch.where(q[..., :1] < 0, -q, q)
 
     @staticmethod
     def from_quat(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """Unit quaternion [..., 4] (w, x, y, z) + t [..., 3] -> [..., 4, 4]."""
-        q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+        q = q / norm4(q, keepdim=True)
         w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
         R = torch.stack(
             [

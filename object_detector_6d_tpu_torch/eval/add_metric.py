@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from object_detector_6d_tpu_torch.core.device import checked_device, no_tf32
+from object_detector_6d_tpu_torch.core.exact import norm3, sqrt_rn
 
 
 def _tensors(*xs, device):
@@ -53,7 +54,7 @@ def add_distance(pose_est, pose_gt, model_pts, device="cuda") -> torch.Tensor:
     with no_tf32():
         pe = _apply(pose_est, model_pts)
         pg = _apply(pose_gt, model_pts)
-    return torch.linalg.vector_norm(pe - pg, dim=-1).mean(-1)
+    return norm3(pe - pg).mean(-1)
 
 
 def adds_distance(pose_est, pose_gt, model_pts, device="cuda") -> torch.Tensor:
@@ -64,7 +65,7 @@ def adds_distance(pose_est, pose_gt, model_pts, device="cuda") -> torch.Tensor:
         pg = _apply(pose_gt, model_pts)
         d2 = (_sqnorm(pe)[..., :, None] + _sqnorm(pg)[..., None, :]
               - 2.0 * torch.matmul(pe, pg.transpose(-1, -2)))
-    return torch.sqrt(torch.clamp(d2.amin(-1), min=0.0)).mean(-1)
+    return sqrt_rn(torch.clamp(d2.amin(-1), min=0.0)).mean(-1)
 
 
 def model_diameter(model_pts, device="cuda") -> float:
@@ -73,7 +74,7 @@ def model_diameter(model_pts, device="cuda") -> float:
     sq = _sqnorm(pts)
     with no_tf32():
         d2 = sq[:, None] + sq[None, :] - 2.0 * torch.matmul(pts, pts.T)
-    return float(torch.sqrt(torch.clamp(d2.max(), min=0.0)))
+    return float(sqrt_rn(torch.clamp(d2.max(), min=0.0)))
 
 
 def add_accuracy(

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from object_detector_6d_tpu_torch.core.device import on_device
+from object_detector_6d_tpu_torch.core.exact import exp_rn
 from object_detector_6d_tpu_torch.geom.depth import rescale_depth
 
 
@@ -35,13 +36,15 @@ def clean_depth(depth, window_size: int = 7, device="cuda") -> torch.Tensor:
     den = torch.zeros_like(zf)
     zp = torch.nn.functional.pad(zf, (r, r, r, r))
     vp = torch.nn.functional.pad(valid.to(torch.float32), (r, r, r, r))
-    for dy in range(window_size):
-        for dx in range(window_size):
-            zn = zp[dy:dy + H, dx:dx + W]
-            vn = vp[dy:dy + H, dx:dx + W]
-            w = torch.exp(-0.5 * torch.square((zn - zf) / sigma)) * vn
-            num = num + w * zn
-            den = den + w
+    offsets = [(dy, dx) for dy in range(window_size) for dx in range(window_size)]
+    # the window's exponents in one correctly rounded exp (one cast to float64)
+    ws = exp_rn(torch.stack([-0.5 * torch.square((zp[dy:dy + H, dx:dx + W] - zf) / sigma)
+                             for dy, dx in offsets]))
+    for w, (dy, dx) in zip(ws, offsets):
+        zn = zp[dy:dy + H, dx:dx + W]
+        w = w * vp[dy:dy + H, dx:dx + W]
+        num = num + w * zn
+        den = den + w
     out = torch.where(valid & (den > 0), num / den, float("nan"))
     if is_int:
         # via int32: torch has no float -> uint16 conversion

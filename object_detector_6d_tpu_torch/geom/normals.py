@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from object_detector_6d_tpu_torch.core.device import on_device
+from object_detector_6d_tpu_torch.core.exact import norm3, sqrt_rn
 from object_detector_6d_tpu_torch.core.intrinsics import Intrinsics, pixel_grid
 from object_detector_6d_tpu_torch.core.se3 import cross
 from object_detector_6d_tpu_torch.quant.depth_normal import interior_mask, ring_gradient
@@ -83,14 +84,14 @@ class FalsNormals:
         rays = torch.as_tensor(self.rays, device=dev)
         minv = torch.as_tensor(self.minv, device=dev)
         x, y, z = points[..., 0], points[..., 1], points[..., 2]
-        r = torch.sqrt(x * x + y * y + z * z)
+        r = sqrt_rn(x * x + y * y + z * z)
         valid = torch.isfinite(r) & (r > 0)
         inv_r = torch.where(valid, 1.0 / torch.where(valid, r, 1.0), 0.0)
         b = _box_sum(rays * inv_r[..., None], self.window_size // 2)
         n = (minv[..., 0] * b[..., 0:1] + minv[..., 1] * b[..., 1:2]
              + minv[..., 2] * b[..., 2:3])
-        norm = torch.sqrt(n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1]
-                          + n[..., 2] * n[..., 2])[..., None]
+        norm = sqrt_rn(n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1]
+                       + n[..., 2] * n[..., 2])[..., None]
         n = n / norm
         flip = (n[..., 0] * rays[..., 0] + n[..., 1] * rays[..., 1]
                 + n[..., 2] * rays[..., 2])[..., None] > 0
@@ -110,13 +111,6 @@ def normals_fals(points: torch.Tensor, K, window_size: int = 5) -> torch.Tensor:
     H, W, _ = points.shape
     k_bytes = np.ascontiguousarray(np.asarray(K, dtype=np.float64)).tobytes()
     return _cached_fals(H, W, k_bytes, window_size)(points)
-
-
-def _norm3(x: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis (``jnp.linalg.norm``; on the CPU
-    ``vector_norm`` rounds as XLA:CPU does, where a left-to-right
-    sqrt(x*x + y*y + z*z) differs by an ulp on ~1.6% of the SRI rays)."""
-    return torch.linalg.vector_norm(x, dim=-1)
 
 
 def gradient(a: torch.Tensor, dim: int) -> torch.Tensor:
@@ -161,7 +155,7 @@ def normals_linemod(depth_u16, K, difference_threshold: int = 50,
     # the +1 pixel offsets are the oracle's (the reference measured them
     # on ramps: u+1-cx reproduces its values, u-cx is ~0.05 deg off)
     nz = -((u + 1.0 - cx) * gu + (v + 1.0 - cy) * gv + d.to(torch.float32))
-    norm = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    norm = sqrt_rn(nx * nx + ny * ny + nz * nz)
     inv = 1.0 / torch.where(norm > 0, norm, 1.0)
     n = torch.stack([nx * inv, ny * inv, nz * inv], -1)
     n = torch.where(n[..., 2:3] > 0, -n, n)
@@ -177,7 +171,7 @@ def normals_cross(points, device="cuda") -> torch.Tensor:
     dx = gradient(points, 1)
     dy = gradient(points, 0)
     n = cross(dy, dx)
-    norm = _norm3(n)[..., None]
+    norm = norm3(n)[..., None]
     n = n / norm
     n = torch.where(n[..., 2:3] > 0, -n, n)
     return _nan_where(~torch.isfinite(norm[..., 0]) | (norm[..., 0] == 0), n)
@@ -197,11 +191,11 @@ def normals_sri(points, K, window_size: int = 5, device="cuda") -> torch.Tensor:
     u, v = pixel_grid(H, W, device=dev)
     rays = torch.stack([(u - intr.cx) / intr.fx, (v - intr.cy) / intr.fy,
                         torch.ones_like(u)], -1)
-    rays_u = rays / _norm3(rays)[..., None]
+    rays_u = rays / norm3(rays)[..., None]
     d_du = gradient(rays_u, 1)
     d_dv = gradient(rays_u, 0)
 
-    r = _norm3(points)
+    r = norm3(points)
     valid = torch.isfinite(r) & (r > 0)
     w = valid.to(torch.float32)
     r0 = torch.where(valid, r, 0.0)
@@ -213,7 +207,7 @@ def normals_sri(points, K, window_size: int = 5, device="cuda") -> torch.Tensor:
     t_u = r_u[..., None] * rays_u + rs[..., None] * d_du
     t_v = r_v[..., None] * rays_u + rs[..., None] * d_dv
     n = cross(t_v, t_u)
-    norm = _norm3(n)[..., None]
+    norm = norm3(n)[..., None]
     n = n / norm
     flip = (n[..., 0] * rays_u[..., 0] + n[..., 1] * rays_u[..., 1]
             + n[..., 2] * rays_u[..., 2])[..., None] > 0

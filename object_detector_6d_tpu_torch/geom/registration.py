@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from object_detector_6d_tpu_torch.core.device import no_tf32, on_device
+from object_detector_6d_tpu_torch.core.device import on_device
+from object_detector_6d_tpu_torch.core.exact import fma_matmul
 from object_detector_6d_tpu_torch.core.intrinsics import Intrinsics, pixel_grid
 from object_detector_6d_tpu_torch.geom.depth import rescale_depth
 
@@ -30,8 +31,7 @@ def _cloud(depth, K, Rt, device):
     u, v = pixel_grid(H, W, device=z.device)
     pts = torch.stack([z * (u - intr.cx) / intr.fx, z * (v - intr.cy) / intr.fy, z], -1)
     Rt = torch.as_tensor(np.asarray(Rt, np.float32), device=z.device)
-    with no_tf32():
-        pts = torch.matmul(pts, Rt[:3, :3].T) + Rt[:3, 3]
+    pts = fma_matmul(pts, Rt[:3, :3].T) + Rt[:3, 3]
     return pts, H, W
 
 

@@ -15,8 +15,13 @@ iteration counts (7, 7, 7, 10), finest first. The reference's
 ``lax.while_loop`` stops a level when the update norm falls under
 ``tolerance``; here the host reads the norm after each step (one sync a
 step: odometry is not on the detect path) and stops at the same step.
-Products run in full float32 (TF32 off, the reference's
-``Precision.HIGHEST``); the damped 6x6 solve is ``torch.linalg.solve``.
+Every float sum is written in one order for every device: the sums over
+points (the normal equations, the centroid, the residual) are
+``core/reduce.py`` ``fixed_sum`` trees, the damped 6x6 system is solved
+by the detect path's unrolled Cholesky (``refine/projective.py``
+``_chol_solve6``; the reference's ``jnp.linalg.solve`` is an LU), and a
+grey image is the reference's channel sum times the float32 1/3, so the
+card answers as the CPU does.
 """
 
 from __future__ import annotations
@@ -27,12 +32,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from object_detector_6d_tpu_torch.core.device import no_tf32, on_device
+from object_detector_6d_tpu_torch.core.device import on_device
+from object_detector_6d_tpu_torch.core.exact import sqrt_rn
 from object_detector_6d_tpu_torch.core.intrinsics import Intrinsics
+from object_detector_6d_tpu_torch.core.reduce import fixed_sum
 from object_detector_6d_tpu_torch.core.se3 import SE3, cross
 from object_detector_6d_tpu_torch.geom.backproject import depth_to_3d
 from object_detector_6d_tpu_torch.geom.depth import rescale_depth
 from object_detector_6d_tpu_torch.geom.normals import gradient, normals_cross
+from object_detector_6d_tpu_torch.refine.projective import _chol_solve6
 
 # fine -> coarse; the oracle's defaultIterCounts {7,7,7,10} is indexed by
 # pyramid level with level 0 = finest, so the coarsest level gets 10
@@ -46,7 +54,8 @@ def _avg_pyr_down(z: torch.Tensor) -> torch.Tensor:
     z = z[:H // 2 * 2, :W // 2 * 2]
     blocks = z.reshape(H // 2, 2, W // 2, 2).permute(0, 2, 1, 3).reshape(H // 2, W // 2, 4)
     v = torch.isfinite(blocks)
-    s = torch.where(v, blocks, 0.0).sum(-1)
+    b = torch.where(v, blocks, 0.0)
+    s = ((b[..., 0] + b[..., 1]) + b[..., 2]) + b[..., 3]
     c = v.sum(-1)
     return torch.where(c > 0, s / torch.clamp(c, min=1), float("nan"))
 
@@ -69,7 +78,8 @@ class OdometryFrame:
         gray = None
         if image is not None:
             img = on_device(image, z.device).to(torch.float32)
-            gray = img.mean(-1) if img.dim() == 3 else img
+            gray = (((img[..., 0] + img[..., 1]) + img[..., 2]) * _THIRD if img.dim() == 3
+                    else img)
         clouds, normals, intensities, Ks = [], [], [], []
         Kl = np.asarray(K, np.float64)
         for lvl in range(levels):
@@ -91,6 +101,23 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+# jnp.mean over 3 channels: the sum times the float32 reciprocal of 3
+_THIRD = float(np.float32(1.0) / np.float32(3.0))
+_TI, _TJ = np.tril_indices(6)  # the 21 entries i >= j of the 6x6 system
+
+
+def _normal_equations(J: torch.Tensor, w: torch.Tensor, r: torch.Tensor):
+    """(J^T W J [6, 6], J^T W r [6], sum |r| w) over the points [N] of
+    J [N, 6], w [N], r [N], by one fixed_sum tree."""
+    Jw = J * w[:, None]
+    s = fixed_sum(torch.cat([Jw[:, _TI] * J[:, _TJ], Jw * r[:, None],
+                             (torch.abs(r) * w)[:, None]], -1), 0)
+    A = J.new_zeros((6, 6))
+    A[_TI, _TJ] = s[:21]
+    A[_TJ, _TI] = s[:21]
+    return A, s[21:27], s[27]
+
+
 @torch.no_grad()
 def _odometry_level(src_cloud, dst_cloud, dst_normals, src_gray, dst_gray, K, pose0,
                     use_icp: bool, use_rgb: bool, iters: int, stride: int,
@@ -108,7 +135,6 @@ def _odometry_level(src_cloud, dst_cloud, dst_normals, src_gray, dst_gray, K, po
     if use_rgb:
         sg = src_gray[::stride, ::stride].reshape(-1)
         gx, gy = gradient(dst_gray, 1), gradient(dst_gray, 0)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
 
     def step(pose):
@@ -124,19 +150,20 @@ def _odometry_level(src_cloud, dst_cloud, dst_normals, src_gray, dst_gray, K, po
         nq = dst_n[vc, uc]
         ok = inb & dst_ok[vc, uc] & (torch.abs(q[:, 2] - mp[:, 2]) < max_depth_diff)
         w = ok.to(torch.float32)
-        wsum = torch.clamp(w.sum(), min=1.0)
-        c = torch.sum(mp * w[:, None], 0) / wsum
+        s1 = fixed_sum(torch.cat([w[:, None], mp * w[:, None]], -1), 0)
+        wsum = torch.clamp(s1[0], min=1.0)
+        c = s1[1:] / wsum
 
         A = torch.zeros((6, 6), dtype=torch.float32, device=dev)
         b = torch.zeros((6,), dtype=torch.float32, device=dev)
         res_acc = torch.zeros((), dtype=torch.float32, device=dev)
         if use_icp:
-            r = torch.sum((mp - q) * nq, -1)
-            J = torch.cat([cross(mp - c, nq), nq], -1)
-            Jw = J * w[:, None]
-            A = A + torch.matmul(Jw.T, J)
-            b = b - torch.matmul(Jw.T, r[:, None])[:, 0]
-            res_acc = res_acc + torch.sum(torch.abs(r) * w) / wsum
+            e = (mp - q) * nq
+            r = (e[:, 0] + e[:, 1]) + e[:, 2]
+            Ai, Jtr, rsum = _normal_equations(torch.cat([cross(mp - c, nq), nq], -1), w, r)
+            A = A + Ai
+            b = b - Jtr
+            res_acc = res_acc + rsum / wsum
         if use_rgb:
             ig = dst_gray[vc, uc]
             rI = (ig - sg) * 0.01  # intensity scaled to ~metres
@@ -149,27 +176,24 @@ def _odometry_level(src_cloud, dst_cloud, dst_normals, src_gray, dst_gray, K, po
             Jr = torch.stack([pc[:, 1] * Jt[:, 2] - pc[:, 2] * Jt[:, 1],
                               pc[:, 2] * Jt[:, 0] - pc[:, 0] * Jt[:, 2],
                               pc[:, 0] * Jt[:, 1] - pc[:, 1] * Jt[:, 0]], -1)
-            JI = torch.cat([Jr, Jt], -1)
-            JIw = JI * w[:, None]
-            A = A + torch.matmul(JIw.T, JI)
-            b = b - torch.matmul(JIw.T, rI[:, None])[:, 0]
-            res_acc = res_acc + torch.sum(torch.abs(rI) * w) / wsum
+            Ai, JIr, rsum = _normal_equations(torch.cat([Jr, Jt], -1), w, rI)
+            A = A + Ai
+            b = b - JIr
+            res_acc = res_acc + rsum / wsum
 
-        lam = 1e-6 * torch.trace(A) + 1e-12
-        x = torch.linalg.solve(A + lam * eye6, b)
+        x = _chol_solve6(A[None], b[None])[0]  # damped by 1e-6 tr(A) + 1e-12
         dT = SE3.exp(x)
         shift = SE3.from_rt(eye3, c)
         unshift = SE3.from_rt(eye3, -c)
         new_pose = SE3.compose(shift, SE3.compose(dT, SE3.compose(unshift, pose)))
-        return new_pose, res_acc, torch.linalg.vector_norm(x)
+        return new_pose, res_acc, sqrt_rn(fixed_sum(x * x, 0))
 
     pose = pose0
     residual = torch.zeros((), dtype=torch.float32, device=dev)
-    with no_tf32():
-        for _ in range(iters):
-            pose, residual, upd = step(pose)
-            if float(upd) < tolerance:
-                break
+    for _ in range(iters):
+        pose, residual, upd = step(pose)
+        if float(upd) < tolerance:
+            break
     return pose, residual
 
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from object_detector_6d_tpu_torch.core.exact import sqrt_rn
 from object_detector_6d_tpu_torch.geom.normals import FalsNormals
 from object_detector_6d_tpu_torch.ops import kernels
 
@@ -78,13 +79,13 @@ class FusedScene:
         z = d.to(torch.float32) * 0.001
         x = z * rays[0] * self.rfx
         y = z * rays[1] * self.rfy
-        rr = torch.sqrt(x * x + y * y + z * z)
+        rr = sqrt_rn(x * x + y * y + z * z)
         inv_r = torch.where(valid, 1.0 / rr, torch.zeros_like(rr))
         comp = rays[None, 2:5] * inv_r[:, None]  # [B, 3, H, W]
         bs = _box5_rows_cols(comp)
         n = [minv[3 * i] * bs[:, 0] + minv[3 * i + 1] * bs[:, 1]
              + minv[3 * i + 2] * bs[:, 2] for i in range(3)]
-        norm = torch.sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2])
+        norm = sqrt_rn(n[0] * n[0] + n[1] * n[1] + n[2] * n[2])
         norm_ok = (norm > 0) & torch.isfinite(norm)
         n = [c / norm for c in n]
         flip = (n[0] * rays[2] + n[1] * rays[3] + n[2] * rays[4]) > 0

@@ -28,8 +28,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from object_detector_6d_tpu_torch.core.device import checked_device, no_tf32
-from object_detector_6d_tpu_torch.core.se3 import SE3, cross, so3_exp
+from object_detector_6d_tpu_torch.core.device import checked_device
+from object_detector_6d_tpu_torch.core.exact import arccos_rn, atan2_rn, norm3, sincos_rn
+from object_detector_6d_tpu_torch.core.se3 import SE3, cross, small_matmul, so3_exp
 from object_detector_6d_tpu_torch.ppf.helpers import sample_pc_by_quantization
 from object_detector_6d_tpu_torch.refine.pose import Pose, cluster_poses
 
@@ -49,38 +50,42 @@ def _recip(step: float, dev) -> torch.Tensor:
     return torch.tensor(np.float32(1.0) / np.float32(step), device=dev)
 
 
-def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
-    return torch.linalg.vector_norm(x, dim=-1, keepdim=keepdim)
-
-
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b, -1)
+    """a . b over the last 3 entries, summed left to right (the CPU's
+    ``torch.sum`` order, written out so that the card takes it too)."""
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def _rotate(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """R [..., 3, 3] @ p [..., 3] in a fixed order on every device."""
+    return small_matmul(R, p[..., None])[..., 0]
 
 
 def _align_to_x(p: torch.Tensor, n: torch.Tensor):
     """(R [..., 3, 3], t [..., 3]) taking p to the origin and the normal n
     onto +x: a rotation about n x ex by angle(n, ex)."""
-    n = n / (_norm(n, keepdim=True) + 1e-12)
+    n = n / (norm3(n, keepdim=True) + 1e-12)
     ex = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device).expand_as(n)
     axis = cross(n, ex)
-    axis_norm = _norm(axis, keepdim=True)
+    axis_norm = norm3(axis, keepdim=True)
     # degenerate: n parallel to ex
     ey = torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device)
     safe_axis = torch.where(axis_norm > 1e-7, axis / (axis_norm + 1e-12), ey)
-    ang = torch.arccos(torch.clamp(_dot(n, ex), -1.0, 1.0))
+    ang = arccos_rn(torch.clamp(_dot(n, ex), -1.0, 1.0))
     R = so3_exp(safe_axis * ang[..., None])
-    t = -torch.matmul(R, p[..., None])[..., 0]
+    t = -_rotate(R, p)
     return R, t
 
 
 def _features(p1, n1, p2, n2, dist_step, inv_angle_step):
     """The quantized pair key ((kd * 64 + k1) * 64 + k2) * 64 + k3."""
     d = p2 - p1
-    dist = _norm(d)
+    dist = norm3(d)
     dn = d / (dist[..., None] + 1e-12)
 
     def ang(a, b):
-        return torch.arccos(torch.clamp(_dot(a, b), -1.0, 1.0))
+        return arccos_rn(torch.clamp(_dot(a, b), -1.0, 1.0))
 
     kd = (dist / dist_step).to(torch.int32)
     k1 = (ang(n1, dn) * inv_angle_step).to(torch.int32)
@@ -91,8 +96,8 @@ def _features(p1, n1, p2, n2, dist_step, inv_angle_step):
 
 def _alpha(R: torch.Tensor, t: torch.Tensor, p_i: torch.Tensor) -> torch.Tensor:
     """In-plane angle of p_i after the alignment (R, t) of a reference point."""
-    q = torch.matmul(R, p_i[..., None])[..., 0] + t
-    return torch.atan2(-q[..., 2], q[..., 1])
+    q = _rotate(R, p_i) + t
+    return atan2_rn(-q[..., 2], q[..., 1])
 
 
 @torch.no_grad()
@@ -107,13 +112,12 @@ def _train_pairs(model: torch.Tensor, dist_step: float, num_angles: int):
     R, t = _align_to_x(xyz, nrm)
     keys, alphas = [], []
     rows = max(1, PAIR_BLOCK // max(1, N))
-    with no_tf32():
-        for s in range(0, N, rows):
-            e = min(N, s + rows)
-            key = _features(xyz[s:e, None], nrm[s:e, None], xyz[None], nrm[None], step, inv_a)
-            eye = torch.arange(s, e, device=dev)[:, None] == torch.arange(N, device=dev)[None]
-            keys.append(torch.where(eye, -1, key))
-            alphas.append(_alpha(R[s:e, None], t[s:e, None], xyz[None]))
+    for s in range(0, N, rows):
+        e = min(N, s + rows)
+        key = _features(xyz[s:e, None], nrm[s:e, None], xyz[None], nrm[None], step, inv_a)
+        eye = torch.arange(s, e, device=dev)[:, None] == torch.arange(N, device=dev)[None]
+        keys.append(torch.where(eye, -1, key))
+        alphas.append(_alpha(R[s:e, None], t[s:e, None], xyz[None]))
     idx_i = torch.arange(N, dtype=torch.int32, device=dev)[:, None].expand(N, N)
     return torch.cat(keys), torch.cat(alphas), idx_i
 
@@ -139,41 +143,40 @@ def _match_refs(scene, ref_idx, model, keys_sorted, vals_i, vals_alpha, dist_ste
     rows = max(1, min(VOTE_BLOCK_BYTES // (4 * n_bins),
                       MATCH_BLOCK_LOOKUPS // max(1, Ns * matches_per_pair)))
     votes, poses = [], []
-    with no_tf32():
-        for s in range(0, ref_idx.shape[0], rows):
-            r = ref_idx[s:s + rows]
-            Rc = r.shape[0]
-            p_r, n_r = s_xyz[r], s_nrm[r]
-            key = _features(p_r[:, None], n_r[:, None], s_xyz[None], s_nrm[None], step, inv_a)
-            R_s, t_s = _align_to_x(p_r, n_r)
-            alpha_s = _alpha(R_s[:, None], t_s[:, None], s_xyz[None])  # [Rc, Ns]
-            start = torch.searchsorted(keys_sorted, key)  # left-sided
-            idx = start[..., None] + offs
-            idx_c = torch.clamp(idx, 0, nK - 1)
-            hit = (keys_sorted[idx_c] == key[..., None]) & (idx < nK)
-            # vote bin: alpha = alpha_m - alpha_s in [-2pi, 2pi] -> [0, n_alpha)
-            da = torch.remainder(vals_alpha[idx_c] - alpha_s[..., None] + two_pi, two_pi)
-            a_bin = torch.clamp((da * inv_bin).to(torch.int32), max=n_alpha - 1)
-            flat = torch.where(hit, vals_i[idx_c] * n_alpha + a_bin, n_bins - 1)
-            acc = torch.zeros((Rc, n_bins), dtype=torch.int32, device=dev)
-            acc.scatter_add_(1, flat.reshape(Rc, -1).to(torch.int64),
-                             torch.ones((Rc, Ns * matches_per_pair), dtype=torch.int32, device=dev))
-            acc = acc[:, :-1]
-            best = torch.argmax(acc, 1)  # the first of equal counts
-            votes.append(torch.gather(acc, 1, best[:, None])[:, 0])
-            best_i = best // n_alpha
-            best_a = (best % n_alpha).to(torch.float32) * bin_width
-            # pose: T = T_sg^-1 . Rx(alpha) . T_mg
-            R_m, t_m = _align_to_x(m_xyz[best_i], m_nrm[best_i])
-            ca, sa = torch.cos(best_a), torch.sin(best_a)
-            one, zero = torch.ones_like(ca), torch.zeros_like(ca)
-            Rx = torch.stack([torch.stack([one, zero, zero], -1),
-                              torch.stack([zero, ca, -sa], -1),
-                              torch.stack([zero, sa, ca], -1)], -2)
-            T_x = SE3.from_rt(Rx, torch.zeros((Rc, 3), dtype=torch.float32, device=dev))
-            T = SE3.compose(SE3.inverse(SE3.from_rt(R_s, t_s)),
-                            SE3.compose(T_x, SE3.from_rt(R_m, t_m)))
-            poses.append(T)
+    for s in range(0, ref_idx.shape[0], rows):
+        r = ref_idx[s:s + rows]
+        Rc = r.shape[0]
+        p_r, n_r = s_xyz[r], s_nrm[r]
+        key = _features(p_r[:, None], n_r[:, None], s_xyz[None], s_nrm[None], step, inv_a)
+        R_s, t_s = _align_to_x(p_r, n_r)
+        alpha_s = _alpha(R_s[:, None], t_s[:, None], s_xyz[None])  # [Rc, Ns]
+        start = torch.searchsorted(keys_sorted, key)  # left-sided
+        idx = start[..., None] + offs
+        idx_c = torch.clamp(idx, 0, nK - 1)
+        hit = (keys_sorted[idx_c] == key[..., None]) & (idx < nK)
+        # vote bin: alpha = alpha_m - alpha_s in [-2pi, 2pi] -> [0, n_alpha)
+        da = torch.remainder(vals_alpha[idx_c] - alpha_s[..., None] + two_pi, two_pi)
+        a_bin = torch.clamp((da * inv_bin).to(torch.int32), max=n_alpha - 1)
+        flat = torch.where(hit, vals_i[idx_c] * n_alpha + a_bin, n_bins - 1)
+        acc = torch.zeros((Rc, n_bins), dtype=torch.int32, device=dev)
+        acc.scatter_add_(1, flat.reshape(Rc, -1).to(torch.int64),
+                         torch.ones((Rc, Ns * matches_per_pair), dtype=torch.int32, device=dev))
+        acc = acc[:, :-1]
+        best = torch.argmax(acc, 1)  # the first of equal counts
+        votes.append(torch.gather(acc, 1, best[:, None])[:, 0])
+        best_i = best // n_alpha
+        best_a = (best % n_alpha).to(torch.float32) * bin_width
+        # pose: T = T_sg^-1 . Rx(alpha) . T_mg
+        R_m, t_m = _align_to_x(m_xyz[best_i], m_nrm[best_i])
+        sa, ca = sincos_rn(best_a)
+        one, zero = torch.ones_like(ca), torch.zeros_like(ca)
+        Rx = torch.stack([torch.stack([one, zero, zero], -1),
+                          torch.stack([zero, ca, -sa], -1),
+                          torch.stack([zero, sa, ca], -1)], -2)
+        T_x = SE3.from_rt(Rx, torch.zeros((Rc, 3), dtype=torch.float32, device=dev))
+        T = SE3.compose(SE3.inverse(SE3.from_rt(R_s, t_s)),
+                        SE3.compose(T_x, SE3.from_rt(R_m, t_m)))
+        poses.append(T)
     return torch.cat(votes), torch.cat(poses), 4 * n_bins * min(rows, ref_idx.shape[0])
 
 

@@ -22,6 +22,7 @@ import torch
 
 from object_detector_6d_tpu_torch.core.config import DepthNormalParams
 from object_detector_6d_tpu_torch.core.device import on_device
+from object_detector_6d_tpu_torch.core.exact import sqrt_rn
 from object_detector_6d_tpu_torch.ops.median import median5_onehot_u8
 
 _RING_RADIUS = 5
@@ -113,7 +114,7 @@ def quantized_normals(
     nx = (1150 * ddx).to(torch.float32)
     ny = (1150 * ddy).to(torch.float32)
     nz = (-det * d).to(torch.float32)
-    norm = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    norm = sqrt_rn(nx * nx + ny * ny + nz * nz)
     inv = 1.0 / norm
     ten = torch.tensor(10.0, dtype=torch.float32, device=d.device)
     # truncation toward zero; masked (norm == 0) pixels give NaN here,

@@ -32,6 +32,8 @@ import torch
 
 from object_detector_6d_tpu_torch.core.config import ICPParams
 from object_detector_6d_tpu_torch.core.device import checked_device
+from object_detector_6d_tpu_torch.core.exact import sincos_device, sqrt_rn
+from object_detector_6d_tpu_torch.core.reduce import fixed_sum
 from object_detector_6d_tpu_torch.core.se3 import SE3, cross
 
 # elements of one [rows, M] block of the distance matrix (64 MB of float32):
@@ -122,7 +124,7 @@ def _p2pl_step(pose, model_pc, scene_pts, scene_nrm, scene_valid, sample_mask,
     q = scene_pts[idx]
     n = scene_nrm[idx]
 
-    d = torch.sqrt(torch.clamp(d2, min=0.0))
+    d = sqrt_rn(torch.clamp(d2, min=0.0))
     d_masked = torch.where(sample_mask, d, 1e30)
     # mask-aware robust statistics over the unmasked samples only
     d_nan = torch.where(sample_mask, d, float("nan"))
@@ -145,14 +147,14 @@ def _p2pl_step(pose, model_pc, scene_pts, scene_nrm, scene_valid, sample_mask,
     A = torch.matmul(Jw.T, J)
     b = -torch.matmul(Jw.T, r[:, None])[:, 0]
     x = _solve6(A, b)
-    dT = SE3.exp(x)
+    dT = SE3.exp(x, sincos=sincos_device)
     # conjugate by the centroid shift: rotate about c, not the origin
     eye = torch.eye(3, dtype=pose.dtype, device=pose.device)
     shift = SE3.from_rt(eye, c)
     unshift = SE3.from_rt(eye, -c)
     new_pose = SE3.compose(shift, SE3.compose(dT, SE3.compose(unshift, pose)))
     residual = torch.sum(torch.abs(r) * w) / wsum
-    return new_pose, torch.linalg.vector_norm(x), residual
+    return new_pose, sqrt_rn(fixed_sum(x * x, -1)), residual
 
 
 def split_scene(scene_pc: torch.Tensor):

@@ -29,6 +29,7 @@ from typing import Sequence
 
 import torch
 
+from object_detector_6d_tpu_torch.core.exact import sqrt_rn
 from object_detector_6d_tpu_torch.core.reduce import fixed_sum
 from object_detector_6d_tpu_torch.core.se3 import SE3, cross
 
@@ -52,7 +53,7 @@ def _chol_solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         s = a[j][j]
         for k in range(j):
             s = s - L[j][k] * L[j][k]
-        L[j][j] = torch.sqrt(torch.clamp(s, min=1e-20))
+        L[j][j] = sqrt_rn(torch.clamp(s, min=1e-20))
         inv = 1.0 / L[j][j]
         for i in range(j + 1, 6):
             s = a[i][j]
@@ -156,7 +157,7 @@ def _gn_solve(pose, model_pc, qp, qn, w):
     unshift = SE3.from_rt(eye, -c)
     new_pose = SE3.compose(shift, SE3.compose(dT, SE3.compose(unshift, pose)))
     residual = s1[:, 4] / wsum
-    return new_pose, torch.sqrt(fixed_sum(x * x, 1)), residual
+    return new_pose, sqrt_rn(fixed_sum(x * x, 1)), residual
 
 
 def _proj_step(pose, model_pc, mask, scenes, scene_of_lane, fx, fy, cx, cy,

@@ -11,12 +11,9 @@ box sums, down the rows and then along the columns, each added in order
 from its first term. The model below repeats that bookkeeping step for
 step, one block's 256 threads at a time, with the constants of the
 source; every float step is a numpy float32 operation, rounded once, as
-the kernel's ``__f*_rn`` intrinsics. The one exception is the square
-root: PyTorch's CPU ``sqrt`` is not correctly rounded (it differs from
-IEEE by an ulp on under 1% of inputs, the same at every position of a
-tensor), so the model takes the twin's own, or the near-singular solve
-would turn those ulps into differences that say nothing of the
-bookkeeping. On the card both the twin's and the kernel's are IEEE.
+the kernel's ``__f*_rn`` intrinsics, and the square root is numpy's,
+correctly rounded as ``__fsqrt_rn`` and the twin's ``core/exact.py``
+``sqrt_rn`` are.
 """
 
 import numpy as np
@@ -37,7 +34,7 @@ UNWRITTEN = F32(-7777.0)
 
 
 def _sqrt(x):
-    return torch.sqrt(torch.as_tensor(np.ascontiguousarray(x))).numpy()
+    return np.sqrt(x)
 
 
 def _comp_of(d, ray, rfx, rfy):
