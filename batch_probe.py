@@ -67,10 +67,12 @@ BATCHES = (1, 2, 4, 32)
 # the recorded regions: functions (by name) of the port's files
 DETECT_REGIONS = {"api/detect_program.py": ("lift_and_refine", "cluster")}
 TOOL_REGIONS = {"geom/cleaner.py": ("clean_depth",),
-                "ppf/detector.py": ("_train_pairs", "_match_refs")}
+                "geom/plane.py": ("_block_planes", "_assign_pixels"),
+                "ppf/detector.py": ("_train_pairs", "_match_refs"),
+                "ppf/helpers.py": ("knn", "compute_normals_pc3d")}
 # core/exact.py's helpers: each is one stage, re-run whole on the CPU
 HELPERS = ("sqrt_rn", "sincos_rn", "sin_rn", "cos_rn", "exp_rn", "arccos_rn", "atan2_rn",
-           "fma_rn", "fma_matmul", "norm3", "norm4", "sincos_device")
+           "fma_rn", "fma_matmul", "norm3", "norm4", "sincos_device", "eigh3", "div_rn")
 
 
 def gn_solve_matmul(pose, model_pc, qp, qn, w):
@@ -451,14 +453,18 @@ def stage_xdev(label, run, dev, gpu):
 
 
 def tools_xdev(dev, gpu):
-    """Stage mode over clean_depth and PPF's training and matching, on
-    chip_smoke.py phase 11's inputs (PPF matches both devices against the
-    CPU's trained tables, so that the two runs take the same inputs)."""
+    """Stage mode over clean_depth, extract_planes, PPF's training and
+    matching and its PCA normals, on chip_smoke.py phase 11's inputs (PPF
+    matches both devices against the CPU's trained tables, so that the two
+    runs take the same inputs)."""
     from object_detector_6d_tpu_torch.geom.cleaner import clean_depth
+    from object_detector_6d_tpu_torch.geom.plane import extract_planes
     from object_detector_6d_tpu_torch.ppf import detector as ppf
+    from object_detector_6d_tpu_torch.ppf.helpers import compute_normals_pc3d
 
     scenes = cs.scenes_module()
     noisy = cs.noisy_snowman(scenes)
+    cloud, _ = cs.plane_cloud(scenes, scenes.K_DEFAULT)
     model, scene, _ = cs.ppf_inputs(scenes)
     trained = ppf.PPFDetector(device="cpu")
     trained.train_model(model)
@@ -476,6 +482,10 @@ def tools_xdev(dev, gpu):
             torch.as_tensor(trained.model_sampled, device=d), trained._dist_step(),
             trained.num_angles), dev, gpu),
         "ppf match": stage_xdev("ppf match card vs cpu", match, dev, gpu),
+        "extract_planes": stage_xdev("extract_planes card vs cpu",
+                                     lambda d: extract_planes(cloud, device=d), dev, gpu),
+        "ppf normals": stage_xdev("ppf normals card vs cpu", lambda d: compute_normals_pc3d(
+            model[::8, :3], device=d), dev, gpu),
     }
 
 

@@ -108,9 +108,9 @@ Phases (each raises on failure, so the script exits non-zero):
               render_translated (tests/test_registration.py), depth and
               BGR card == cpu bitwise; ms each
    d. extract_planes on tests/test_plane.py's two-planes scene: >= 2
-              planes, labels card == cpu on >= 99.9%, coefficients within
-              1e-4 (its block fits are torch.linalg.eigh, the library's
-              order on each device; the gap is printed); ms
+              planes, labels on every pixel and coefficients card == cpu
+              bitwise (its block fits are core/exact.py's eigh3 over
+              fixed_sum covariances); ms
    e. odometry: ICP, FastICP, Rgbd and RgbdICP at the reference's default
               (4 levels, iter_counts (7, 7, 7, 10)) on
               tests/test_odometry.py's translated snowman pairs: the
@@ -119,9 +119,11 @@ Phases (each raises on failure, so the script exits non-zero):
    f. PPF: train on scenes.snowman_model() (exact normals), match on it
               moved by a known pose with add_noise_pc(.., 0.001): the best
               pose within 10% of the diameter and 25 deg of the truth;
-              the pair tables card vs cpu: every key and every alpha vote
-              bin equal, alphas within 1e-5 rad, the sorted tables equal;
-              ms for train and match, and the vote tables' bytes
+              the pair tables card vs cpu: every key, alpha and alpha vote
+              bin equal bitwise, the sorted tables equal; the PCA normals
+              (compute_normals_pc3d: knn + eigh3) of every 8th model point
+              card == cpu bitwise; ms for train and match, and the vote
+              tables' bytes
 12. raw forms and windows, on phase 3's two-modality detector and frames:
    a. raw     make_detect_program with device_nms=False and with
               flat_output=True at batch=32: unflatten_outputs(flat) equals
@@ -215,10 +217,51 @@ Phases (each raises on failure, so the script exits non-zero):
               and the cluster stage, every stage, the flat record and the
               Pose arrays equal
    d. poses   held in 3c, 4c, 12d (all 32 frames, windows 0, 96, -1) and 16
-   e. tools   the stage mode over clean_depth (0 calls differ) and PPF's
-              training and matching (logged); phase 11's gates
+   e. tools   the stage mode over clean_depth, extract_planes and PPF's
+              PCA normals (0 calls and 0 stages differ) and PPF's training
+              and matching (logged); phase 11's gates
    f. cost    the device operations per span of a two-modality batch
               (torch.profiler) and clean_depth ms per frame
+18. configurations: the JAX package's bench.py configurations through the
+   port's entry points at 480x640 (frames from make_frames, bench.py's
+   generator); every launch of a-d's main runs adds to the kernels line:
+   a. config 4 (bench.py:404-457) phase 3's detector and views at 64
+              hypothesis slots x 3 seeds (192 ICP lanes a frame), fine
+              compaction 16, threshold 75 raised by 2 while the first
+              batch has a frame through the overflow fallback (up to 80;
+              the threshold is logged); two batches of B=16,
+              make_frames(16, 200 + s): 4 warm-up detect_fused_dispatch
+              calls, then 8 timed, finalized with finalize_many in groups
+              of 4 (ms per batch, frames/s). Gates: (i) no timed frame
+              through the fallback; (ii) a frame with more than 16
+              candidates through the threshold (every frame's count and
+              poses before NMS are logged); (iii) frames 0-1 of the B=16
+              batch == the card's B=2 batch and a CPU PoseDetector's B=2
+              batch, and the frame with the most candidates == the CPU's
+              on it alone: flat record and Pose arrays bitwise; (iv) objA
+              found / off truth within 3 of the JAX package's (REF4)
+   b. scale   configs 2 + 4 (bench.py:459-515): a fresh Detector() with
+              synthetic_bank(12, 100) + objA + objB (1202 templates) at
+              a's schedule and gates ((ii) logged only; (iv) over frames
+              0-1, REF_SCALE), frames make_frames(16, 300 + s); K6 ==
+              its twin on the match program's own [1202, F] tables (time,
+              L2 flushed, bound, the cuDNN conv), K4 at 64 candidates
+   c. match   make_match_program alone at bench_match's banks (12x10,
+              12x100, 40x100 = 120, 1200, 4000 templates), B=8 random
+              BGR / depth 900-1599 frames from RandomState(0), 32
+              candidates, threshold 80: the match record of frames 0-1
+              card == CPU; ms per batch over 12 dispatches synced once (8
+              at 4000); K6 at 4000 templates and K4 at 32 candidates on
+              the program's own arguments
+   d. config 5 (bench.py:518-600) phase 3's detector on 4-camera ticks
+              make_frames(4, 100 + s), s = 0..3: StreamingDetector.process
+              (mean of the 6 fastest of 8 ticks), 16 tick-wise pipelined
+              dispatches finalized in groups of 8 after a warm group, 8
+              dispatch_multi executions of G=4 ticks; ms per tick and
+              frames/s against the 33.3 ms tick of 4 x 30 FPS; every
+              camera of every pipelined and scanned tick == process on
+              it, bitwise; device ops, host ms and device ms per detect.*
+              span of one tick and of a B=32 batch (torch.profiler)
 
 The two-modality workload is bench.py's: the snowman objA and its
 0.78-scale objB trained with the port's add_view (rgb = the gray view x3)
@@ -231,7 +274,7 @@ depth-only workload has 130 depth-only distractors instead (13 classes x
 
 The line before the last is {"kernels": [...]}: every kernel with its
 launches on the two-modality main path plus those of phases 10, 12, 13,
-14, 15 and 16,
+14, 15, 16 and 18,
 its largest difference from its twin, its time beside the twin's, its
 bound (the larger of its bytes over the card's memory rate and its
 operations over the peak rate for their type, from this run's inputs;
@@ -597,6 +640,40 @@ def coarse_main_inputs(dev, pd, rgbs_np, depths_np):
     return D, pd.bank_tensors(det.get_bank())[0].coarse_tables, gh, gw
 
 
+def coarse_record(D, tables, gh: int, gw: int) -> dict:
+    """K6's record on D and the bank's coarse tables (its twin was compared
+    by the caller): warm and L2-flushed times, the twin's, the bound and the
+    cuDNN conv2d's time (library_ms; null, with the bytes logged, where its
+    dense one-hot kernels would not fit in the card's free memory)."""
+    from object_detector_6d_tpu_torch.ops import refine
+
+    nT = tables[0].shape[0]
+    kh, kw = int(tables[1].max()) + 1, int(tables[2].max()) + 1
+    dense = 4 * nT * D.shape[1] * kh * kw
+    free = torch.cuda.mem_get_info()[0]
+    want = refine.coarse_sweep(D, *tables, gh, gw)
+    if dense < free // 4:
+        library = coarse_conv_ms(D, tables, gh, gw, want)
+    else:
+        library = None
+        log(f"coarse_sweep at nT={nT}: no library time, the conv's dense one-hot kernels "
+            f"would take {dense / 1e9:.2f} GB of {free / 1e9:.2f} GB free")
+    out_bytes = 4 * D.shape[0] * nT * gh * gw
+    bnd, by = bound_ms(D.numel() + sum(t.numel() * 4 for t in tables) + out_bytes,
+                       int(tables[3].sum()) * D.shape[0] * gh * gw)
+    return dict(
+        name="coarse_sweep", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/coarse_sweep.cu",
+        replaces="object_detector_6d_tpu/ops/refine_pallas.py:162",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: refine.coarse_sweep(D, *tables, gh, gw)),
+        cold_ms=cuda_ms_cold(lambda: refine.coarse_sweep(D, *tables, gh, gw)),
+        plain_ms=cuda_ms(lambda: refine.coarse_sweep_plain(D, *tables, gh, gw), reps=5),
+        shape=f"D {list(D.shape)} i8, tables {list(tables[0].shape)} -> "
+              f"[{D.shape[0]},{nT},{gh},{gw}] i32",
+        library_ms=library, bound_ms=bnd, bound_by=by)
+
+
 def color_kernel_checks(dev, pd, rgbs_np, depths_np, gpu):
     """K1 and K6 against their twins on the card. Returns their records."""
     from object_detector_6d_tpu_torch.ops import quantize, refine
@@ -640,36 +717,16 @@ def color_kernel_checks(dev, pd, rgbs_np, depths_np, gpu):
                 refine.coarse_sweep_plain(Dt, *tables, oh, ow))
     log(f"kernel coarse_sweep: equal to twin at D {tuple(D.shape)} with tables "
         f"{tuple(tables[0].shape)} and at D {tuple(D_odd.shape)} of bytes -128..127")
-    recs.append(dict(
-        name="coarse_sweep", route="cuda",
-        source="object_detector_6d_tpu_torch/csrc/coarse_sweep.cu",
-        replaces="object_detector_6d_tpu/ops/refine_pallas.py:162",
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: refine.coarse_sweep(D, *tables, gh, gw)),
-        cold_ms=cuda_ms_cold(lambda: refine.coarse_sweep(D, *tables, gh, gw)),
-        plain_ms=cuda_ms(lambda: refine.coarse_sweep_plain(D, *tables, gh, gw), reps=5),
-        shape=f"D {list(D.shape)} i8, tables {list(tables[0].shape)} -> "
-              f"[{D.shape[0]},{tables[0].shape[0]},{gh},{gw}] i32",
-        library_ms=coarse_conv_ms(D, tables, gh, gw, refine.coarse_sweep(D, *tables, gh, gw))))
-    out_bytes = 4 * D.shape[0] * tables[0].shape[0] * gh * gw
-    recs[-1]["bound_ms"], recs[-1]["bound_by"] = bound_ms(
-        D.numel() + sum(t.numel() * 4 for t in tables) + out_bytes,
-        int(tables[3].sum()) * D.shape[0] * gh * gw)
+    recs.append(coarse_record(D, tables, gh, gw))
     log_times(recs, gpu)
     return recs
 
 
-def _capture_args(dev, pd, depths_np, rgbs_np, K, wrapper: str):
-    """The arguments of every call of the kernel wrapper ``wrapper`` in
-    one call of ``pd``'s match program on these frames."""
+def capture_calls(wrapper: str, run):
+    """The arguments of every call of the kernel wrapper ``wrapper`` that
+    match/program.py makes in run()."""
     from object_detector_6d_tpu_torch.match import program as mp
 
-    H, W = depths_np.shape[1:]
-    prog, _ = pd.program(H, W, K)
-    det = pd.detector
-    d = torch.as_tensor(depths_np.astype(np.int32), device=dev)
-    sources = [torch.as_tensor(rgbs_np, device=dev) if n == "ColorGradient" else d
-               for n in det.modality_names]
     calls = []
     real = getattr(mp, wrapper)
 
@@ -680,15 +737,28 @@ def _capture_args(dev, pd, depths_np, rgbs_np, K, wrapper: str):
     setattr(mp, wrapper, capture)
     try:
         with torch.no_grad():
-            prog.match_program(sources, *pd.bank_tensors(det.get_bank())[0], THRESHOLD)
+            run()
     finally:
         setattr(mp, wrapper, real)
     return calls
 
 
-def capture_refine_args(dev, pd, depths_np, rgbs_np, K):
+def _capture_args(dev, pd, depths_np, rgbs_np, K, wrapper: str, threshold=THRESHOLD):
+    """The arguments of every call of the kernel wrapper ``wrapper`` in
+    one call of ``pd``'s match program on these frames."""
+    H, W = depths_np.shape[1:]
+    prog, _ = pd.program(H, W, K)
+    det = pd.detector
+    d = torch.as_tensor(depths_np.astype(np.int32), device=dev)
+    sources = [torch.as_tensor(rgbs_np, device=dev) if n == "ColorGradient" else d
+               for n in det.modality_names]
+    return capture_calls(wrapper, lambda: prog.match_program(
+        sources, *pd.bank_tensors(det.get_bank())[0], threshold))
+
+
+def capture_refine_args(dev, pd, depths_np, rgbs_np, K, threshold=THRESHOLD):
     """Every K4 launch's arguments (D and its tables, one per modality)."""
-    return _capture_args(dev, pd, depths_np, rgbs_np, K, "refine_sweep_batched")
+    return _capture_args(dev, pd, depths_np, rgbs_np, K, "refine_sweep_batched", threshold)
 
 
 def capture_response_args(dev, pd, depths_np, rgbs_np, K):
@@ -781,16 +851,22 @@ def refine_launcher(lib, calls, dev):
 
 
 def refine_main_path_record(dev, pd, depths_np, rgbs_np, K, gpu):
-    """K4 against its twin on the arguments the two-modality match program
-    passes it (one call of the match program, D [B,200,Hp2,Wp2] i8 and
-    tables [B,16,F] per modality), timed with the L2 warm (repeated
-    launches) and cold (flushed before each launch). Returns its record."""
+    """K4's record on the arguments the two-modality match program passes
+    it (one call of the match program, D [B,200,Hp2,Wp2] i8 and tables
+    [B,16,F] per modality)."""
+    return refine_record(dev, capture_refine_args(dev, pd, depths_np, rgbs_np, K), gpu,
+                         "the two-modality main path's")
+
+
+def refine_record(dev, calls, gpu, what: str):
+    """K4 against its twin on captured match-program ``calls``, timed with
+    the L2 warm (repeated launches) and cold (flushed before each launch).
+    Returns its record."""
     from object_detector_6d_tpu_torch.ops import kernels, refine
 
-    calls = capture_refine_args(dev, pd, depths_np, rgbs_np, K)
     nbytes = int_ops = 0
     for D, plane, r0, c0, nfe in calls:
-        compare(f"refine_sweep main path {tuple(D.shape)}",
+        compare(f"refine_sweep {what} {tuple(D.shape)} {tuple(plane.shape)}",
                 refine.refine_sweep_batched(D, plane, r0, c0, nfe),
                 refine.refine_sweep_plain(D, plane, r0, c0, nfe))
         # distinct bytes of D that the live tiles cover, the live table
@@ -827,7 +903,7 @@ def refine_main_path_record(dev, pd, depths_np, rgbs_np, K, gpu):
     D0, plane0 = calls[0][0], calls[0][1]
     shape = (f"{len(calls)} launches: D {list(D0.shape)} i8, tables {list(plane0.shape)}, "
              f"{nbytes / 1e6:.2f} MB touched, {int_ops} adds")
-    log(f"kernel refine_sweep_batched: equal to twin on the two-modality main path's "
+    log(f"kernel refine_sweep_batched: equal to twin on {what} "
         f"arguments ({shape}); the kernel alone: warm L2 {warm:.4f} ms, cold L2 "
         f"{cold:.4f} ms per batch; through the wrapper (argument checks with a host "
         f"sync, warm) {wrapped:.4f} ms; {gpu}")
@@ -1867,25 +1943,36 @@ def geometry_registration_checks(dev, scenes, K, label, gpu):
     return {"register_depth": ms_reg, "warp_frame": ms_warp}
 
 
-def geometry_plane_checks(dev, scenes, K, label, gpu):
+def plane_cloud(scenes, K):
+    """tests/test_plane.py's two-planes scene: the snowman frame with a
+    sloped strip at the left, as a [480, 640, 3] float32 numpy cloud, and
+    the snowman's mask."""
     from object_detector_6d_tpu_torch.geom.backproject import depth_to_3d
-    from object_detector_6d_tpu_torch.geom.plane import extract_planes
 
     dep, _, mask = scenes.snowman_scene()
     yy, xx = np.mgrid[0:480, 0:640]
     dep = dep.copy()
     strip = xx < 120
     dep[strip] = (1200 + 0.8 * yy).astype(np.uint16)[strip]
-    pts = depth_to_3d(torch.as_tensor(dep.astype(np.int32), device=dev), K)
+    return depth_to_3d(torch.as_tensor(dep.astype(np.int32)), K).numpy(), mask
+
+
+def geometry_plane_checks(dev, scenes, K, label, gpu):
+    from object_detector_6d_tpu_torch.geom.plane import extract_planes
+
+    cloud, mask = plane_cloud(scenes, K)
+    pts = torch.as_tensor(cloud, device=dev)
     card = extract_planes(pts)
     cpu = extract_planes(pts.cpu())
-    # the block fits are torch.linalg.eigh, the library's order on each
-    # device: held as before, and the gap printed
-    same = float((card.labels == cpu.labels).mean())
-    if len(card.coefficients) < 2 or len(card.coefficients) != len(cpu.coefficients) or \
-            same < 0.999 or np.abs(card.coefficients - cpu.coefficients).max() > 1e-4:
-        raise AssertionError(f"[{label}] extract_planes: {len(card.coefficients)} planes "
-                             f"(cpu {len(cpu.coefficients)}), labels equal on {same:.5f}")
+    # the block fits are core/exact.py's eigh3 over fixed_sum covariances:
+    # labels on every pixel and the coefficients bitwise
+    if len(card.coefficients) < 2 or not np.array_equal(card.labels, cpu.labels) or \
+            float_bits(torch.as_tensor(card.coefficients)).tolist() != \
+            float_bits(torch.as_tensor(cpu.coefficients)).tolist():
+        raise AssertionError(f"[{label}] extract_planes card != cpu: {len(card.coefficients)} "
+                             f"planes (cpu {len(cpu.coefficients)}), labels equal on "
+                             f"{float((card.labels == cpu.labels).mean()):.5f}")
+    xx = np.mgrid[0:480, 0:640][1]
     labels_bg = card.labels[(~mask) & (xx >= 160)]
     main = np.bincount(labels_bg[labels_bg != 255], minlength=1).argmax()
     if (labels_bg == main).mean() <= 0.9:
@@ -1893,8 +1980,7 @@ def geometry_plane_checks(dev, scenes, K, label, gpu):
                              f"{(labels_bg == main).mean():.3f}")
     ms = host_ms(lambda: extract_planes(pts))
     log(f"[{label}] extract_planes (two planes + the snowman): {len(card.coefficients)} planes, "
-        f"labels card == cpu on {same:.5f}, max |coefficient| diff "
-        f"{np.abs(card.coefficients - cpu.coefficients).max():.2e}; time {ms:.2f} ms per "
+        f"labels on every pixel and coefficients card == cpu bitwise; time {ms:.2f} ms per "
         f"cloud (host clock, median of 3; {gpu})")
     return {"extract_planes": ms}
 
@@ -1957,6 +2043,7 @@ def ppf_inputs(scenes):
 
 def geometry_ppf_checks(dev, scenes, label, gpu):
     from object_detector_6d_tpu_torch.ppf import detector as ppf
+    from object_detector_6d_tpu_torch.ppf.helpers import compute_normals_pc3d
 
     model, scene, T = ppf_inputs(scenes)
     dets = {}
@@ -1964,9 +2051,9 @@ def geometry_ppf_checks(dev, scenes, label, gpu):
         dets[str(d)] = ppf.PPFDetector(device=d)
         dets[str(d)].train_model(model)
     det, cpu = dets[str(dev)], dets["cpu"]
-    # the pair tables before sorting, card against CPU: every key equal,
-    # alphas within the CPU test's 1e-5 rad of the JAX package's, and every
-    # pair's alpha vote bin (2 pi / (2 num_angles) wide) equal
+    # the pair tables before sorting, card against CPU: every key, every
+    # alpha and every pair's alpha vote bin (2 pi / (2 num_angles) wide)
+    # equal, bitwise
     raw = [ppf._train_pairs(torch.as_tensor(det.model_sampled, device=d), det._dist_step(),
                             det.num_angles) for d in (dev, "cpu")]
     keys_same = float((raw[0][0].cpu() == raw[1][0]).float().mean())
@@ -1977,11 +2064,18 @@ def geometry_ppf_checks(dev, scenes, label, gpu):
                        == np.floor((alphas[1] + np.pi) / width)).mean())
     sorted_same = bool(np.array_equal(det._keys_sorted, cpu._keys_sorted)
                        and np.array_equal(det._vals_i, cpu._vals_i))
-    if keys_same < 1.0 or bins_same < 1.0 or alpha_diff > 1e-5 or not sorted_same or \
+    alphas_same = bool(torch.equal(float_bits(raw[0][1].cpu()), float_bits(raw[1][1])))
+    if keys_same < 1.0 or bins_same < 1.0 or not alphas_same or not sorted_same or \
             not np.array_equal(det.model_sampled, cpu.model_sampled):
         raise AssertionError(f"[{label}] PPF tables card vs cpu: keys equal on {keys_same}, "
-                             f"alpha bins on {bins_same}, max |alpha| diff {alpha_diff:.2e} rad, "
-                             f"sorted tables equal {sorted_same}")
+                             f"alpha bins on {bins_same}, alphas bitwise {alphas_same} (max "
+                             f"|diff| {alpha_diff:.2e} rad), sorted tables equal {sorted_same}")
+    # PCA normals (knn + eigh3) of every 8th model point, card == cpu bitwise
+    sub = model[::8, :3]
+    nrm = [compute_normals_pc3d(sub, device=d).cpu() for d in (dev, "cpu")]
+    if not torch.equal(float_bits(nrm[0]), float_bits(nrm[1])):
+        raise AssertionError(f"[{label}] compute_normals_pc3d card != cpu: max "
+                             f"{float((nrm[0] - nrm[1]).abs().max()):.2e}")
     poses = det.match(scene)
     if not poses:
         raise AssertionError(f"[{label}] PPF: no hypotheses")
@@ -1995,8 +2089,8 @@ def geometry_ppf_checks(dev, scenes, label, gpu):
     log(f"[{label}] PPF on the snowman model ({len(model)} points, {len(det.model_sampled)} "
         f"sampled, {len(det._keys_sorted)} pairs, diameter {det.model_diameter:.4f} m): "
         f"tables card vs cpu: pair keys equal on {keys_same:.7f}, alpha bins on "
-        f"{bins_same:.7f} (max |alpha| diff {alpha_diff:.2e} rad), sorted key and index "
-        f"tables equal {sorted_same}; best pose {et * 1e3:.3f} mm "
+        f"{bins_same:.7f}, alphas bitwise, sorted key and index tables equal "
+        f"{sorted_same}; PCA normals of {len(sub)} points (k=12) bitwise; best pose {et * 1e3:.3f} mm "
         f"/ {er:.3f} deg from the truth ({poses[0].num_votes} votes), card vs cpu "
         f"{dt * 1e3:.4f} mm / {dr:.4f} deg; vote tables {det.vote_table_bytes} bytes a block; "
         f"time train {ms_train:.2f} ms, match {ms_match:.2f} ms (host clock, median of 3; {gpu})")
@@ -2757,12 +2851,22 @@ def trace_ops(pd, depths, rgbs, K):
     """Device operations (kernels, copies, fills) launched inside each
     detect.* span of one detect_fused_batch, from a torch.profiler trace:
     ({span: count}, {trace event category: count})."""
+    spans, cats = trace_spans(lambda: pd.detect_fused_batch(depths, K, rgbs))
+    return {name: ops for name, (ops, _, _) in spans.items()}, cats
+
+
+def trace_spans(fn):
+    """One call of fn() under torch.profiler: for each detect.* span, the
+    device operations (kernels, copies, fills) launched inside it, its
+    host ms and the device ms of those operations; and the count of trace
+    events by category. ({span: (ops, host ms, device ms)}, {category:
+    count})."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pd.detect_fused_batch(depths, K, rgbs)
+        fn()
         torch.cuda.synchronize()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -2777,14 +2881,17 @@ def trace_ops(pd, depths, rgbs, K):
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
-    counts = {name: 0 for name, _, _ in spans}
+    out = {name: [0, 0.0, 0.0] for name, _, _ in spans}
+    for name, t0, t1 in spans:
+        out[name][1] += (t1 - t0) / 1e3
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             ts = launched.get(e.get("args", {}).get("correlation"))
             for name, t0, t1 in spans:
                 if ts is not None and t0 <= ts <= t1:
-                    counts[name] += 1
-    return counts, cats
+                    out[name][0] += 1
+                    out[name][2] += e.get("dur", 0) / 1e3
+    return {k: tuple(v) for k, v in out.items()}, cats
 
 
 def batch_phase(dev, pd2, depths2, rgbs2, pd, depths, tick, K, counted, gpu):
@@ -3003,8 +3110,9 @@ def device_phase(dev, pd2, depths2, rgbs2, pd, depths, K, gpu):
     tools = batch_probe.tools_xdev(dev, gpu)
     log(f"[{label}] e. depth tools, card vs cpu (calls differing, stages differing): "
         f"{ {k: (v['calls_differing'], v['differing']) for k, v in tools.items()} }")
-    if tools["clean_depth"]["calls_differing"] or tools["clean_depth"]["differing"]:
-        raise AssertionError(f"[{label}] e. clean_depth card != cpu: {tools['clean_depth']}")
+    for tool in ("clean_depth", "extract_planes", "ppf normals"):
+        if tools[tool]["calls_differing"] or tools[tool]["differing"]:
+            raise AssertionError(f"[{label}] e. {tool} card != cpu: {tools[tool]}")
 
     ops, _ = trace_ops(pd2, depths2, rgbs2, K)
     frame = torch.as_tensor(noisy_snowman(scenes_module()), device=dev)
@@ -3012,6 +3120,394 @@ def device_phase(dev, pd2, depths2, rgbs2, pd, depths, K, gpu):
     log(f"[{label}] f. device operations per span of one B={len(depths2)} two-modality batch "
         f"{ops} (lift + ICP {ops.get('detect.lift_icp')}); clean_depth {ms:.4f} ms per 480x640 "
         f"frame (CUDA events); {gpu}")
+
+
+# ----------------------------------------------------------------------
+# phase 18: the reference's large configurations (bench.py's configs 2, 4
+# and 5) through the port's entry points, on the card
+# ----------------------------------------------------------------------
+
+# config 4 (bench.py:404-457): 64 hypothesis slots x 3 depth seeds = 192
+# ICP lanes a frame, fine compaction to 16, threshold 75, raised by 2 while
+# the first batch has a frame whose candidates overflow the slots, up to 80
+CONFIG4 = dict(max_hypotheses=64, num_seeds=3, fine_compact=16)
+THRESHOLD4 = 75.0
+B4 = 16
+# the JAX package on the CPU, on the same trained state, frames and
+# threshold back-off (computed once: this script runs where there is no
+# JAX): the threshold the back-off chose, the frames counted, and per class
+# the frames with a pose within GT_T_M / GT_DEG of the truth and the poses
+# off it. objA is held to these within OBJB_SLACK (exactly over 2 frames).
+# Config 4, frames make_frames(16, 200): objB's off-truth poses lie on the
+# background plane, 0.34-0.57 m from its truth.
+REF4 = {"threshold": 75.0, "frames": 16, "objA": (16, 0), "objB": (5, 10)}
+# configs 2 + 4 (bench.py:459-515), the 1202-template bank, frames
+# make_frames(16, 300): the JAX package's match takes ~10 min a frame at
+# 1202 templates on a CPU, so its counts cover frames 0-1
+REF_SCALE = {"threshold": 75.0, "frames": 2, "objA": (2, 0), "objB": (0, 1)}
+# bench_match's points (bench.py:65-114, :627-634): (classes, templates a
+# class, dispatches timed), B = 8 frames, 32 candidates, threshold 80
+MATCH_POINTS = ((12, 10, 12), (12, 100, 12), (40, 100, 8))
+MATCH_B = 8
+# config 5 (bench.py:518-600): 4-camera ticks, 30 FPS a camera
+N_CAM = 4
+TICK_BUDGET_MS = 1000.0 / 30.0
+
+
+def config4_detector(pd, dev):
+    """``pd``'s detector and views at the config-4 schedule (bench.py's
+    bench_hyp_scaling: only the hypothesis capacity and threshold change)."""
+    import dataclasses
+
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+
+    pd4 = PoseDetector(detector=pd.detector, model_points=pd.model_points, device=dev,
+                       params=dataclasses.replace(pd.params, match_threshold=THRESHOLD4,
+                                                  **CONFIG4))
+    pd4.views = pd.views
+    return pd4
+
+
+def back_off(label, pd4, depths, rgbs, K) -> float:
+    """bench.py's adaptive threshold: from 75, +2 while the first batch has a
+    frame through the overflow fallback, up to 80. Sets it on ``pd4``."""
+    import dataclasses
+
+    thr = THRESHOLD4
+    while True:
+        pd4.params = dataclasses.replace(pd4.params, match_threshold=thr)
+        pd4.counters.counts["overflow_fallback"] = 0
+        t0 = time.time()
+        out = pd4.detect_fused_batch(depths, K, rgbs)
+        n_over = pd4.counters.counts.get("overflow_fallback", 0)
+        log(f"[{label}] threshold {thr:g}: {sum(map(len, out))} poses over {len(depths)} "
+            f"frames, {n_over} through the overflow fallback ({time.time() - t0:.1f} s)")
+        if n_over == 0 or thr >= 80.0:
+            return thr
+        thr += 2.0
+
+
+def pipelined(pd, batches, K, n: int, group: int):
+    """bench.py's pipelined run: n detect_fused_dispatch calls over
+    ``batches`` in turn, then detect_fused_finalize_many in groups of
+    ``group``. Returns (host ms, the results per dispatch)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [pd.detect_fused_dispatch(batches[i % len(batches)][0], K,
+                                        batches[i % len(batches)][1]) for i in range(n)]
+    out = []
+    for i in range(0, n, group):
+        out += pd.detect_fused_finalize_many(handles[i:i + group])
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def held_to_reference(label, results, gts, thr, ref):
+    """objA's found / off-truth counts over the reference's frames within
+    OBJB_SLACK of the JAX package's (``ref``; exactly over 2 frames), at
+    its threshold; objB's logged beside its reference."""
+    n = ref["frames"]
+    found, spurious = ground_truth_stats(results[:n], gts[:n])
+    got = {c: (found[c], len(spurious[c])) for c in ("objA", "objB")}
+    log(f"[{label}] (iv) over frames 0-{n - 1} (found, off truth) per class: {got}; the JAX "
+        f"package's {ref}; off truth (frame, mm, deg): {spurious}")
+    slack = OBJB_SLACK if n > 2 else 0
+    if thr != ref["threshold"] or any(abs(a - b) > slack
+                                      for a, b in zip(got["objA"], ref["objA"])):
+        raise AssertionError(f"[{label}] (iv) objA (found, off truth) {got['objA']} at "
+                             f"threshold {thr:g}, the JAX package's {ref['objA']} +- {slack} "
+                             f"at {ref['threshold']:g}")
+
+
+def large_config_run(label, pd4, batches, gts, K, counted, ref, gate_lanes, gpu):
+    """One config-4-shaped run (phases 18a, 18b) on batches of B4 frames:
+    the threshold back-off, the pipelined timing with the launch counts
+    from 0, then the gates: (i) no frame through the overflow fallback,
+    (ii) more than 16 candidates through the threshold in some frame
+    in either batch (``gate_lanes``; logged always), (iii) frames 0-1 of
+    the card's first batch == a CPU PoseDetector's on those two frames as
+    a B=2 batch and == the card's B=2 batch, and the frame with the most
+    candidates == the CPU's on it alone, bitwise, (iv) objA held to the
+    JAX package's counts over the first batch.
+    Returns (launches, ms per batch, threshold)."""
+    from object_detector_6d_tpu_torch.api import detect_program as dp
+    from object_detector_6d_tpu_torch.api.pipeline import PoseDetector
+
+    depths, rgbs = batches[0]
+    thr = back_off(label, pd4, depths, rgbs, K)
+
+    for fn in counted:
+        fn.launches = 0
+    pd4.counters.counts["overflow_fallback"] = 0
+    pipelined(pd4, batches, K, 4, 4)
+    ms, _ = pipelined(pd4, batches, K, 8, 4)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"[{label}] launches over 12 pipelined batches: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[{label}] {name} was not launched")
+    if pd4.counters.counts.get("overflow_fallback", 0):
+        raise AssertionError(f"[{label}] (i) a timed batch went through the overflow fallback")
+    B = len(depths)
+    log(f"[{label}] time pipelined, 4 warm-up dispatches then 8 finalized in groups of 4: "
+        f"{ms / 8:.2f} ms per B={B} batch, {8 * B / (ms / 1e3):.1f} frames/s at threshold "
+        f"{thr:g} ({gpu})")
+
+    _, K_cap = pd4.program(*depths.shape[1:], K)
+    records = [flat_record(pd4, d, K, r) for d, r in batches]
+    n_raw = [dp.unflatten_cluster_outputs(f.numpy(), K_cap)[1].astype(int).tolist()
+             for f, _ in records]
+    n_pass = [dp.unflatten_cluster_outputs(f.numpy(), K_cap)[2].astype(int).tolist()
+              for f, _ in records]
+    log(f"[{label}] (ii) per frame of each batch, candidates through the threshold {n_raw}; "
+        f"poses before NMS {n_pass}; {K_cap} slots x {pd4.params.num_seeds} seeds")
+    most = max(max(n) for n in n_raw)
+    if gate_lanes and most <= 16:
+        raise AssertionError(f"[{label}] (ii) no frame has more than 16 candidates: {n_raw}")
+    if most > K_cap:
+        raise AssertionError(f"[{label}] a frame overflows the {K_cap} slots: {n_raw}")
+
+    # (iii) card vs CPU: frames 0-1 of the first batch as a B=2 batch, and
+    # the frame with the most candidates alone
+    cpu_pd = PoseDetector(detector=pd4.detector, params=pd4.params,
+                          model_points=pd4.model_points, device="cpu")
+    cpu_pd.views = pd4.views
+    g, f_most = max(((g, f) for g in range(len(batches)) for f in range(B)),
+                    key=lambda gf: n_raw[gf[0]][gf[1]])
+    d_most, r_most = (x[f_most:f_most + 1] for x in batches[g])
+    t0 = time.time()
+    two = flat_record(pd4, depths[:2], K, rgbs[:2])
+    cpu_two = flat_record(cpu_pd, depths[:2], K, rgbs[:2])
+    alone = flat_record(cpu_pd, d_most, K, r_most)
+    checks = ([(0, f, "the card's B=2 batch", two, f) for f in (0, 1)]
+              + [(0, f, "the cpu's B=2 batch", cpu_two, f) for f in (0, 1)]
+              + [(g, f_most, "the cpu's frame alone", alone, 0)])
+    for g_, f, other, (oflat, oposes), row in checks:
+        same_nan(f"[{label}] (iii) batch {g_} frame {f}: flat record of B={B} vs {other}",
+                 records[g_][0][f], oflat[row])
+        if pose_bits(records[g_][1][f]) != pose_bits(oposes[row]):
+            raise AssertionError(f"[{label}] (iii) batch {g_} frame {f}: Pose arrays of "
+                                 f"B={B} != {other}'s")
+    log(f"[{label}] (iii) frames 0-1 of the card's B={B} batch == the card's B=2 and the "
+        f"cpu's B=2, and batch {g} frame {f_most} == the cpu's frame alone, bitwise (flat "
+        f"record and Pose arrays; {time.time() - t0:.1f} s)")
+    poses = records[0][1]
+    held_to_reference(label, poses, gts, thr, ref)
+    return launches, ms / 8, thr
+
+
+def config4_phase(dev, pd2, scenes, K, counted, gpu):
+    """18a: bench.py's config 4 on phase 3's detector and views."""
+    label = "config 4"
+    pd4 = config4_detector(pd2, dev)
+    frames = [make_frames(scenes, K, B4, 200 + s) for s in range(2)]
+    return large_config_run(label, pd4, [(d, r) for d, r, _ in frames], frames[0][2], K,
+                            counted, REF4, True, gpu)
+
+
+def scale_bank_phase(dev, scenes, K, counted, gpu):
+    """18b: configs 2 + 4, a fresh two-modality Detector() with
+    synthetic_bank(12, 100) + objA + objB (1202 templates) at the config-4
+    schedule; K6 on the match program's own arguments at nT = 1202, K4 at
+    64 candidates. Returns (launches, ms, threshold, [K6, K4 records])."""
+    from object_detector_6d_tpu_torch.api.detector import Detector
+    from object_detector_6d_tpu_torch.data.synthetic import synthetic_bank
+    from object_detector_6d_tpu_torch.ops import refine
+
+    label = "scale bank"
+    det = synthetic_bank(n_classes=12, per_class=100, bbox_px=120, seed=0, detector=Detector())
+    pdl = config4_detector(train(det, dev, scenes, K), dev)
+    frames = [make_frames(scenes, K, B4, 300 + s) for s in range(2)]
+    launches, ms, thr = large_config_run(label, pdl, [(d, r) for d, r, _ in frames],
+                                         frames[0][2], K, counted, REF_SCALE, False, gpu)
+    depths, rgbs = frames[0][:2]
+    coarse = _capture_args(dev, pdl, depths, rgbs, K, "coarse_sweep", thr)
+    recs = []
+    for D, *tables, gh, gw in coarse:
+        compare(f"[{label}] coarse_sweep on the match program's arguments",
+                refine.coarse_sweep(D, *tables, gh, gw),
+                refine.coarse_sweep_plain(D, *tables, gh, gw))
+        recs.append(coarse_record(D, tables, gh, gw))
+    recs.append(refine_record(dev, capture_refine_args(dev, pdl, depths, rgbs, K, thr), gpu,
+                              "the 1202-template bank's match program"))
+    log_times(recs, gpu)
+    return launches, ms, thr, recs
+
+
+def match_inputs(dev, rng):
+    """bench_match's frames: B random BGR frames and depths 900-1599 mm."""
+    bgr = rng.randint(0, 256, (MATCH_B, 480, 640, 3), dtype=np.int64).astype(np.uint8)
+    dep = (900 + rng.randint(0, 700, (MATCH_B, 480, 640))).astype(np.uint16)
+    return (torch.as_tensor(bgr, device=dev),
+            torch.as_tensor(dep.astype(np.int32), device=dev))
+
+
+def match_scaling_phase(dev, counted, gpu):
+    """18c: make_match_program alone at bench_match's three banks: the
+    match record card == CPU on frames 0-1, ms per batch (dispatches
+    synced once), K6 at each bank and K4 at 32 candidates on the program's
+    own arguments. Returns (launches, {templates: ms}, records)."""
+    from object_detector_6d_tpu_torch.api.detector import Detector
+    from object_detector_6d_tpu_torch.data.synthetic import synthetic_bank
+    from object_detector_6d_tpu_torch.match import program as mp
+    from object_detector_6d_tpu_torch.ops import refine
+
+    label = "match scaling"
+    rng = np.random.RandomState(0)
+    inputs = [match_inputs(dev, rng) for _ in range(4)]
+    launches = {fn.__name__: 0 for fn in counted}
+    times, recs = {}, []
+    for n_classes, per_class, n_batches in MATCH_POINTS:
+        det = synthetic_bank(n_classes=n_classes, per_class=per_class, bbox_px=120, seed=0,
+                             detector=Detector())
+        bank = mp.pack_bank(det.class_templates, 2, 2, t0=det.t_at_level[0],
+                            t1=det.t_at_level[1])
+        nT = bank.num_templates
+
+        def program(d):
+            prog = mp.make_match_program(det.modality_names, det.t_at_level, (480, 640),
+                                         det.dn_params, det.cg_params, max_candidates=32)
+            args = mp.bank_args(bank, d)
+            return lambda src: prog(list(src), *args, THRESHOLD)
+
+        card = program(dev)
+        with torch.no_grad():
+            card(inputs[0])
+            torch.cuda.synchronize()
+            for fn in counted:
+                fn.launches = 0
+            t0 = time.perf_counter()
+            outs = [card(inputs[i % 4]) for i in range(n_batches)]
+            torch.cuda.synchronize()
+            times[nT] = (time.perf_counter() - t0) * 1e3 / n_batches
+            for fn in counted:
+                launches[fn.__name__] += fn.launches
+            want = program("cpu")([s[:2].cpu() for s in inputs[0]])
+        if not torch.equal(outs[0][:2].cpu(), want):
+            raise AssertionError(f"[{label}] {nT} templates: the match record of frames 0-1 "
+                                 "card != cpu")
+        log(f"[{label}] {nT} templates: match record {list(outs[0].shape)} of frames 0-1 card "
+            f"== cpu (n_above {outs[0][:, 0, -1].to(torch.int64).tolist()}); "
+            f"{times[nT]:.2f} ms per B={MATCH_B} batch, {MATCH_B / (times[nT] / 1e3):.1f} "
+            f"frames/s ({n_batches} dispatches synced once; {gpu})")
+        if nT >= 4000:
+            for D, *tables, gh, gw in capture_calls("coarse_sweep", lambda: card(inputs[0])):
+                compare(f"[{label}] coarse_sweep at {nT} templates",
+                        refine.coarse_sweep(D, *tables, gh, gw),
+                        refine.coarse_sweep_plain(D, *tables, gh, gw))
+                recs.append(coarse_record(D, tables, gh, gw))
+            recs.append(refine_record(dev, capture_calls("refine_sweep_batched",
+                                                         lambda: card(inputs[0])), gpu,
+                                      f"the {nT}-template match program's"))
+    log_times(recs, gpu)
+    for name, n in launches.items():
+        if n <= 0 and name != "FusedScene":
+            raise AssertionError(f"[{label}] {name} was not launched")
+    return launches, times, recs
+
+
+def tick_spans(pd, depths, rgbs, K, gpu):
+    """The device operations, host ms and device ms per detect.* span of one
+    4-camera ``process`` tick and of one B=32 batch of the same frames
+    (phase 18d's finding: why a tick costs more than 4/32 of a batch)."""
+    from object_detector_6d_tpu_torch.api.streaming import StreamingDetector
+
+    sd = StreamingDetector(pd, n_cameras=len(depths))
+    big = (np.concatenate([depths] * 8), np.concatenate([rgbs] * 8))
+    for name, fn in (("tick", lambda: sd.process(depths, K, rgbs)),
+                     ("B=32", lambda: pd.detect_fused_batch(big[0], K, big[1]))):
+        fn()
+        spans, _ = trace_spans(fn)
+        log(f"[config 5] {name}: per span (device ops, host ms, device ms) "
+            f"{ {k: (v[0], round(v[1], 3), round(v[2], 3)) for k, v in spans.items()} }; {gpu}")
+
+
+def streaming_config_phase(dev, pd2, scenes, K, counted, gpu):
+    """18d: bench.py's config 5 on phase 3's detector: blocking ``process``
+    ticks, tick-wise pipelined dispatches and G=4 scanned executions, each
+    camera of each pipelined tick == ``process`` on it, bitwise. Returns
+    (launches, {mode: ms per tick})."""
+    from object_detector_6d_tpu_torch.api.streaming import StreamingDetector
+
+    label = "config 5"
+    sd = StreamingDetector(pd2, n_cameras=N_CAM)
+    ticks = [make_frames(scenes, K, N_CAM, 100 + s)[:2] for s in range(4)]
+    want = [[pose_bits(p) for p in sd.process(d, K, r)] for d, r in ticks]
+
+    for fn in counted:
+        fn.launches = 0
+    pd2.counters.counts["overflow_fallback"] = 0
+    lat = []
+    for i in range(8):
+        depths, rgbs = ticks[i % 4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd.process(depths, K, rgbs)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    tick_ms = {"blocking process": statistics.mean(sorted(lat)[:6])}
+
+    group = 8
+    pipelined(pd2, ticks, K, group, group)  # one warm group
+    ms, tickwise = pipelined(pd2, ticks, K, 16, group)
+    tick_ms["tick-wise pipelined"] = ms / 16
+
+    G = 4
+    multis = [(np.stack([ticks[(2 * m + g) % 4][0] for g in range(G)]),
+               np.stack([ticks[(2 * m + g) % 4][1] for g in range(G)])) for m in range(2)]
+    pd2.detect_fused_finalize_multi(pd2.detect_fused_dispatch_multi(multis[0][0], K,
+                                                                     multis[0][1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hs = [pd2.detect_fused_dispatch_multi(multis[i % 2][0], K, multis[i % 2][1])
+          for i in range(8)]
+    scanned = [pd2.detect_fused_finalize_multi(h) for h in hs]
+    tick_ms["scanned, G=4"] = (time.perf_counter() - t0) * 1e3 / (8 * G)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"[{label}] {name} was not launched")
+    if pd2.counters.counts.get("overflow_fallback", 0):
+        raise AssertionError(f"[{label}] a tick went through the overflow fallback")
+
+    for i, res in enumerate(tickwise):
+        if [pose_bits(p) for p in res] != want[i % 4]:
+            raise AssertionError(f"[{label}] tick-wise pipelined tick {i} != process")
+    for i, res in enumerate(scanned):
+        for g in range(G):
+            if [pose_bits(p) for p in res[g]] != want[(2 * (i % 2) + g) % 4]:
+                raise AssertionError(f"[{label}] scanned execution {i}, tick {g} != process")
+    log(f"[{label}] every camera of {len(tickwise)} tick-wise pipelined ticks and "
+        f"{len(scanned)} x {G} scanned ticks == process on the same tick, bitwise "
+        f"(poses per camera {[[len(p) for p in w] for w in want]})")
+    for mode, ms in tick_ms.items():
+        log(f"[{label}] time {mode}: {ms:.2f} ms per {N_CAM}-camera tick, "
+            f"{N_CAM * 1e3 / ms:.1f} frames/s aggregate, against the {TICK_BUDGET_MS:.1f} "
+            f"ms tick of {N_CAM} x 30 FPS ({gpu})")
+    log(f"[{label}] blocking ticks (ms): {[round(t, 2) for t in lat]}")
+    tick_spans(pd2, *ticks[0], K, gpu)
+    return launches, tick_ms
+
+
+def configs_phase(dev, pd2, scenes, K, counted, gpu):
+    """Phase 18. Returns (launches per kernel wrapper over its main runs,
+    the K6 / K4 records at the new shapes)."""
+    launches = {fn.__name__: 0 for fn in counted}
+    recs = []
+    for name, step in (
+            ("18a config 4", lambda: config4_phase(dev, pd2, scenes, K, counted, gpu)),
+            ("18b scale bank", lambda: scale_bank_phase(dev, scenes, K, counted, gpu)),
+            ("18c match scaling", lambda: match_scaling_phase(dev, counted, gpu)),
+            ("18d config 5", lambda: streaming_config_phase(dev, pd2, scenes, K, counted,
+                                                             gpu))):
+        t1 = time.time()
+        out = step()
+        for k, n in out[0].items():
+            launches[k] += n
+        if name.startswith("18b"):
+            recs += out[3]
+        if name.startswith("18c"):
+            recs += out[2]
+        log(f"phase {name}: {time.time() - t1:.1f} s; launches {out[0]}")
+    return launches, recs
 
 
 def run(dev, gpu: str) -> None:
@@ -3113,9 +3609,17 @@ def run(dev, gpu: str) -> None:
     device_phase(dev, pd2, depths2, rgbs2, pd, depths, K, gpu)
     log(f"phase device: {time.time() - t1:.1f} s")
 
+    # phase 18: the reference's large configurations (bench.py configs 2, 4, 5)
+    t1 = time.time()
+    configs, shapes = configs_phase(dev, pd2, scenes, K, counted2, gpu)
+    log(f"phase configurations: {time.time() - t1:.1f} s; launches {configs}")
+    log("phase 18 kernels at their new shapes: " + json.dumps(
+        [{k: r[k] for k in ("name", "shape", "ms", "cold_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms") if k in r} for r in shapes]))
+
     for r in recs:
         r["launches"] = sum(ph[r["name"]] for ph in (launches, offline, forms, sharded, limits,
-                                                      batch, coloured))
+                                                      batch, coloured, configs))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(gpu)

@@ -10,7 +10,9 @@ every device:
 
 * the input goes to float64, the float64 function runs and its result is
   rounded to float32. For ``sqrt`` that is provably correctly rounded
-  (float64 carries more than 2 * 24 + 2 bits); for the others the float64
+  (float64 carries more than 2 * 24 + 2 bits; the float64 sqrt is the
+  IEEE one: the card's, and on the CPU numpy's, since PyTorch's CPU
+  float64 sqrt is not correctly rounded); for the others the float64
   result is within an ulp or two of float64, so its rounding to float32
   is correct except within ~2^-28 of a float32 midpoint;
 * where a device's own float32 operation is already correctly rounded,
@@ -24,7 +26,16 @@ x * x))), the order of PyTorch's CPU ``vector_norm`` over 3 entries and
 of XLA:CPU's ``jnp.linalg.norm``; ``norm4`` is sqrt(((x*x + y*y) + z*z)
 + w*w), the CPU ``vector_norm``'s order over 4; ``fma_matmul`` is the
 fma chain of the CPU's ``matmul`` and XLA:CPU's ``dot`` over a small
-inner axis. An fma is emulated exactly in float64 (``fma_rn``).
+inner axis. An fma is emulated exactly in float64 (``fma_rn``); ``dot3``
+is (a0 b0 + a1 b1) + a2 b2.
+
+``eigh3`` replaces ``torch.linalg.eigh`` for 3x3 symmetric matrices:
+each device's library takes its own order (LAPACK on the CPU, cuSOLVER
+on the card), so their eigenvectors parted in the last bits. Its cyclic
+Jacobi runs in float64 with a fixed number of sweeps, every operation
+one elementwise IEEE operation, and rounds once to float32. ``div_rn``
+divides by a tensor only (a CUDA tensor divided by a Python scalar is
+a product with the scalar's float32 reciprocal, unlike the CPU).
 
 ``sincos_device`` is the one exception, each device's own pair, kept
 for the host fallback's nearest-neighbour ICP (its docstring says why).
@@ -32,9 +43,11 @@ for the host fallback's nearest-neighbour ICP (its docstring says why).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-# device types whose own float32 op is correctly rounded, by function
+# device types whose own float32 and float64 op is correctly rounded, by
+# function
 _NATIVE = {"sqrt": ("cuda",)}
 
 
@@ -42,11 +55,20 @@ def _via_f64(fn, *xs: torch.Tensor) -> torch.Tensor:
     return fn(*(x.double() for x in xs)).to(xs[0].dtype)
 
 
+def _sqrt64_host(x: torch.Tensor) -> torch.Tensor:
+    """IEEE float64 sqrt of a CPU tensor, numpy's (the hardware's):
+    PyTorch's CPU float64 sqrt is an ulp off on ~0.8% of inputs."""
+    with np.errstate(invalid="ignore"):
+        return torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded sqrt."""
-    if x.device.type in _NATIVE["sqrt"] or x.dtype == torch.float64:
+    """Correctly rounded sqrt (float32 or float64)."""
+    if x.device.type in _NATIVE["sqrt"]:
         return torch.sqrt(x)
-    return _via_f64(torch.sqrt, x)
+    if x.dtype == torch.float64:
+        return _sqrt64_host(x)
+    return _sqrt64_host(x.double()).to(x.dtype)
 
 
 def sincos_rn(x: torch.Tensor):
@@ -120,6 +142,12 @@ def fma_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b over a last axis of 3 entries: (a0 b0 + a1 b1) + a2 b2, the
+    CPU ``torch.sum``'s order, written out so that the card takes it too."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
 def norm3(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over a 3-entry axis: sqrt(fma(z, z, fma(y, y, x * x)))."""
     x0, x1, x2 = x.unbind(dim)
@@ -135,3 +163,69 @@ def norm4(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor
     x0, x1, x2, x3 = x.unbind(dim)
     out = sqrt_rn(((x0 * x0 + x1 * x1) + x2 * x2) + x3 * x3)
     return out.unsqueeze(dim) if keepdim else out
+
+
+# cyclic Jacobi sweeps of eigh3: the off-diagonal shrinks quadratically
+# once it is small; 6 sweeps take any float32 input to float64 round-off
+# (tests/test_torch_exact_math.py), with no test for convergence
+EIGH3_SWEEPS = 6
+
+
+def div_rn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a / b for two tensors: one IEEE division on every device (a CUDA
+    tensor divided by a Python scalar is a product with the scalar's
+    float32 reciprocal instead)."""
+    if not isinstance(b, torch.Tensor):
+        raise TypeError("div_rn divides by a tensor")
+    return a / b
+
+
+def eigh3(A: torch.Tensor):
+    """Eigen-decomposition of symmetric 3x3 matrices A [..., 3, 3] ->
+    (eigenvalues [..., 3] ascending, eigenvectors [..., 3, 3] as columns),
+    in A's dtype, the same bits on every device.
+
+    A cyclic Jacobi in float64 over the pairs (0, 1), (0, 2), (1, 2),
+    EIGH3_SWEEPS times: each rotation zeroes a[p, q] with t = sign(h) /
+    (|h| + sqrt(h^2 + 1)), h = (a[q, q] - a[p, p]) / (2 a[p, q]) (t = 0 where
+    a[p, q] is 0), c = 1 / sqrt(t^2 + 1), s = t c. Only the upper triangle
+    is read. The eigenvalues are sorted by a stable sort (equal values keep
+    their diagonal order); each column's sign is the rotations'."""
+    a = A.double()
+    m = {(i, j): a[..., i, j] for i in range(3) for j in range(i, 3)}
+    one = torch.ones_like(m[0, 0])
+    zero = torch.zeros_like(one)
+    v = {(i, j): one if i == j else zero for i in range(3) for j in range(3)}
+
+    def get(i, j):
+        return m[(i, j) if i <= j else (j, i)]
+
+    def put(i, j, x):
+        m[(i, j) if i <= j else (j, i)] = x
+
+    for _ in range(EIGH3_SWEEPS):
+        for p, q, r in ((0, 1, 2), (0, 2, 1), (1, 2, 0)):
+            apq, app, aqq = get(p, q), get(p, p), get(q, q)
+            off = apq == 0
+            h = div_rn(aqq - app, torch.where(off, one, apq + apq))
+            root = sqrt_rn(h * h + one)
+            t = div_rn(torch.where(h < 0, -one, one), torch.abs(h) + root)
+            t = torch.where(off, zero, t)
+            c = div_rn(one, sqrt_rn(t * t + one))
+            s = t * c
+            tapq = t * apq
+            put(p, p, app - tapq)
+            put(q, q, aqq + tapq)
+            put(p, q, zero)
+            arp, arq = get(r, p), get(r, q)
+            put(r, p, c * arp - s * arq)
+            put(r, q, s * arp + c * arq)
+            for k in range(3):
+                vkp, vkq = v[k, p], v[k, q]
+                v[k, p] = c * vkp - s * vkq
+                v[k, q] = s * vkp + c * vkq
+    evals = torch.stack([m[0, 0], m[1, 1], m[2, 2]], -1)
+    evals, order = torch.sort(evals, dim=-1, stable=True)
+    vecs = torch.stack([torch.stack([v[k, j] for j in range(3)], -1) for k in range(3)], -2)
+    vecs = torch.gather(vecs, -1, order[..., None, :].expand(vecs.shape))
+    return evals.to(A.dtype), vecs.to(A.dtype)

@@ -3,8 +3,10 @@ object_detector_6d_tpu/geom/plane.py; RgbdPlane's block-merge
 segmentation).
 
 * device: per-block least-squares plane fits, batched 3x3 covariances
-  and ``torch.linalg.eigh``; block validity from the share of finite
-  points and the curvature ratio (smallest / total eigenvalue);
+  and ``core/exact.py`` ``eigh3``; block validity from the share of
+  finite points and the curvature ratio (smallest / total eigenvalue).
+  Every float sum is a ``fixed_sum`` tree or one written order, so the
+  card and the CPU give the same bits;
 * host (hundreds of blocks): the reference's union of 4-adjacent
   similar block planes (angle and distance thresholds), copied as it
   stands;
@@ -23,7 +25,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from object_detector_6d_tpu_torch.core.device import no_tf32, on_device
+from object_detector_6d_tpu_torch.core.device import on_device
+from object_detector_6d_tpu_torch.core.exact import div_rn, dot3, eigh3, fma_matmul
+from object_detector_6d_tpu_torch.core.reduce import fixed_sum
 
 
 def _block_planes(points: torch.Tensor, block_size: int):
@@ -38,25 +42,26 @@ def _block_planes(points: torch.Tensor, block_size: int):
     w = finite.to(torch.float32)
     cnt = torch.clamp(w.sum(-1), min=1.0)
     b0 = torch.where(finite[..., None], blocks, 0.0)
-    mean = b0.sum(1) / cnt[:, None]
+    mean = div_rn(fixed_sum(b0, 1), cnt[:, None])
     centered = torch.where(finite[..., None], blocks - mean[:, None, :], 0.0)
-    with no_tf32():
-        cov = torch.matmul(centered.transpose(1, 2), centered) / cnt[:, None, None]
-    evals, evecs = torch.linalg.eigh(cov)
+    upper = {(i, j): fixed_sum(centered[..., i] * centered[..., j], 1)
+             for i in range(3) for j in range(i, 3)}
+    cov = torch.stack([torch.stack([upper[min(i, j), max(i, j)] for j in range(3)], -1)
+                       for i in range(3)], -2)
+    evals, evecs = eigh3(div_rn(cov, cnt[:, None, None]))
     normal = evecs[..., 0]
     # orient toward the camera (-z half-space; the camera looks down +z)
     normal = torch.where((normal[:, 2] > 0)[:, None], -normal, normal)
-    d = -torch.sum(normal * mean, -1)
+    d = -dot3(normal, mean)
     mse = evals[:, 0]
-    total = torch.clamp(evals.sum(-1), min=1e-12)
+    total = torch.clamp((evals[:, 0] + evals[:, 1]) + evals[:, 2], min=1e-12)
     valid = (w.sum(-1) > 0.5 * block_size * block_size) & (mse / total < 1e-2)
     return normal, d, mse, valid, mean
 
 
 def _assign_pixels(points, normals, ds, active, dist_threshold: float):
     """Per-pixel best plane by |n.p + d| (masked by ``active``)."""
-    with no_tf32():
-        dist = torch.abs(torch.matmul(torch.nan_to_num(points), normals.T) + ds)
+    dist = torch.abs(fma_matmul(torch.nan_to_num(points), normals.T) + ds)
     dist = torch.where(active, dist, float("inf"))
     bestd, best = torch.min(dist, -1)
     ok = (bestd < np.float32(dist_threshold)) & torch.isfinite(points).all(-1)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from object_detector_6d_tpu_torch.core.device import checked_device
-from object_detector_6d_tpu_torch.core.exact import arccos_rn, atan2_rn, norm3, sincos_rn
+from object_detector_6d_tpu_torch.core.exact import arccos_rn, atan2_rn, dot3, norm3, sincos_rn
 from object_detector_6d_tpu_torch.core.se3 import SE3, cross, small_matmul, so3_exp
 from object_detector_6d_tpu_torch.ppf.helpers import sample_pc_by_quantization
 from object_detector_6d_tpu_torch.refine.pose import Pose, cluster_poses
@@ -50,13 +50,6 @@ def _recip(step: float, dev) -> torch.Tensor:
     return torch.tensor(np.float32(1.0) / np.float32(step), device=dev)
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a . b over the last 3 entries, summed left to right (the CPU's
-    ``torch.sum`` order, written out so that the card takes it too)."""
-    p = a * b
-    return (p[..., 0] + p[..., 1]) + p[..., 2]
-
-
 def _rotate(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """R [..., 3, 3] @ p [..., 3] in a fixed order on every device."""
     return small_matmul(R, p[..., None])[..., 0]
@@ -72,7 +65,7 @@ def _align_to_x(p: torch.Tensor, n: torch.Tensor):
     # degenerate: n parallel to ex
     ey = torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device)
     safe_axis = torch.where(axis_norm > 1e-7, axis / (axis_norm + 1e-12), ey)
-    ang = arccos_rn(torch.clamp(_dot(n, ex), -1.0, 1.0))
+    ang = arccos_rn(torch.clamp(dot3(n, ex), -1.0, 1.0))
     R = so3_exp(safe_axis * ang[..., None])
     t = -_rotate(R, p)
     return R, t
@@ -85,7 +78,7 @@ def _features(p1, n1, p2, n2, dist_step, inv_angle_step):
     dn = d / (dist[..., None] + 1e-12)
 
     def ang(a, b):
-        return arccos_rn(torch.clamp(_dot(a, b), -1.0, 1.0))
+        return arccos_rn(torch.clamp(dot3(a, b), -1.0, 1.0))
 
     kd = (dist / dist_step).to(torch.int32)
     k1 = (ang(n1, dn) * inv_angle_step).to(torch.int32)

@@ -4,7 +4,9 @@ ppf_helpers.hpp).
 The samplers, the pose transform and the noise are numpy, copied from
 the reference. ``knn`` is brute force in PyTorch (the reference's
 ``|q|^2 + |p|^2 - 2 q.p`` squared distances) and ``compute_normals_pc3d``
-batches the per-point 3x3 eigen problems. PLY IO lives in io/ply.py.
+batches the per-point 3x3 eigen problems (``core/exact.py`` ``eigh3``).
+Their float sums are ``fixed_sum`` trees, fma chains or one written
+order, so the card and the CPU give the same bits. PLY IO lives in io/ply.py.
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from object_detector_6d_tpu_torch.core.device import no_tf32, on_device
+from object_detector_6d_tpu_torch.core.device import on_device
+from object_detector_6d_tpu_torch.core.exact import div_rn, dot3, eigh3, fma_matmul
+from object_detector_6d_tpu_torch.core.reduce import fixed_sum
 
 # knn holds a [rows, N] float32 distance block and its sort at a time;
 # the query rows of a block are chosen to keep it within this many entries
@@ -59,16 +63,15 @@ def knn(query, points, k: int = 1, device="cuda"):
     dev = next((x.device for x in (query, points) if isinstance(x, torch.Tensor)), device)
     query = on_device(query, dev, torch.float32)
     points = on_device(points, query.device, torch.float32)
-    p2 = torch.sum(points * points, -1)[None, :]
+    p2 = dot3(points, points)[None, :]
     rows = max(1, KNN_BLOCK_ENTRIES // max(1, points.shape[0]))
     idx, d2s = [], []
-    with no_tf32():
-        for s in range(0, query.shape[0], rows):
-            q = query[s:s + rows]
-            d2 = torch.sum(q * q, -1, keepdim=True) + p2 - 2.0 * torch.matmul(q, points.T)
-            d, i = torch.sort(d2, dim=-1, stable=True)
-            idx.append(i[:, :k])
-            d2s.append(d[:, :k])
+    for s in range(0, query.shape[0], rows):
+        q = query[s:s + rows]
+        d2 = dot3(q, q)[:, None] + p2 - 2.0 * fma_matmul(q, points.T)
+        d, i = torch.sort(d2, dim=-1, stable=True)
+        idx.append(i[:, :k])
+        d2s.append(d[:, :k])
     return torch.cat(idx), torch.cat(d2s)
 
 
@@ -81,14 +84,14 @@ def compute_normals_pc3d(pc, k: int = 12, viewpoint=None, device="cuda") -> torc
     xyz = pc[:, :3]
     idx, _ = knn(xyz, xyz, k)
     nbrs = xyz[idx]  # [N, k, 3]
-    centered = nbrs - nbrs.mean(1, keepdim=True)
-    with no_tf32():
-        cov = torch.matmul(centered.transpose(1, 2), centered)
+    count = torch.tensor(float(k), dtype=xyz.dtype, device=xyz.device)
+    centered = nbrs - div_rn(fixed_sum(nbrs, 1), count)[:, None, :]
+    cov = fma_matmul(centered.transpose(1, 2), centered)
     # the smallest eigenvector of the 3x3 covariance
-    normal = torch.linalg.eigh(cov)[1][..., 0]
+    normal = eigh3(cov)[1][..., 0]
     vp = (torch.zeros(3, dtype=xyz.dtype, device=xyz.device) if viewpoint is None
           else on_device(viewpoint, xyz.device, torch.float32))
-    flip = torch.sum(normal * (vp[None, :] - xyz), -1, keepdim=True) < 0
+    flip = dot3(normal, vp[None, :] - xyz)[:, None] < 0
     normal = torch.where(flip, -normal, normal)
     return torch.cat([xyz, normal], -1)
 

@@ -32,14 +32,17 @@ import torch
 
 from object_detector_6d_tpu_torch.core.config import ICPParams
 from object_detector_6d_tpu_torch.core.device import checked_device
-from object_detector_6d_tpu_torch.core.exact import sincos_device, sqrt_rn
+from object_detector_6d_tpu_torch.core.exact import div_rn, dot3, sincos_device, sqrt_rn
 from object_detector_6d_tpu_torch.core.reduce import fixed_sum
 from object_detector_6d_tpu_torch.core.se3 import SE3, cross
+from object_detector_6d_tpu_torch.refine.projective import _chol_solve6
 
-# elements of one [rows, M] block of the distance matrix (64 MB of float32):
-# the association walks the model rows in blocks, since a whole 1024 x 76,800
-# matrix and its temporaries would take over a gigabyte per hypothesis
+# elements of one [rows, M] block of the distance matrix: on the card 2^24
+# (64 MB of float32; a whole 1024 x 76,800 matrix and its temporaries would
+# take over a gigabyte per hypothesis), on the CPU 2^19, whose temporaries
+# stay in the cache (the rows of a block do not change any row's bits)
 _NN_BLOCK = 1 << 24
+_NN_BLOCK_CPU = 1 << 19
 
 
 def nanquantile(a: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -72,8 +75,9 @@ def _nearest_scene(model_pts, scene_pts, scene_valid):
     """Indices + squared distances of the nearest scene point for each
     model point: model_pts [N, 3], scene_pts [M, 3] -> ([N] int64, [N]).
 
-    d2 = (|m|^2 + |s|^2) - 2 m.s with a matrix product for the cross
-    term, as the reference, but on coordinates shifted by the model's
+    d2 = (|m|^2 + |s|^2) - 2 m.s, as the reference, in one written order
+    ((m0 s0 + m1 s1) + m2 s2 for the cross term; the reference's is a
+    matrix product), but on coordinates shifted by the model's
     mean point. In camera coordinates the three terms are ~1.7 m^2 each
     and cancel to ~1e-5 m^2, which leaves d2 with ~1% of float32 noise:
     the nearest neighbour, the MAD inlier set and with them the pose then
@@ -84,18 +88,24 @@ def _nearest_scene(model_pts, scene_pts, scene_valid):
     Invalid scene rows sit at +inf (through their |s|^2, which gives the
     same d2 as masking the matrix). The argmin keeps the first of equal
     distances."""
-    origin = model_pts.mean(dim=0)
+    origin = div_rn(fixed_sum(model_pts, 0),
+                    torch.tensor(float(model_pts.shape[0]), device=model_pts.device))
     model_pts = model_pts - origin
     scene_pts = scene_pts - origin
-    m2 = torch.sum(model_pts * model_pts, dim=-1, keepdim=True)  # [N, 1]
-    s2 = torch.sum(scene_pts * scene_pts, dim=-1)
+    m2 = dot3(model_pts, model_pts)[:, None]  # [N, 1]
+    s2 = dot3(scene_pts, scene_pts)
     s2 = torch.where(scene_valid, s2, float("inf"))[None, :]  # [1, M]
-    scene_t = scene_pts.T
-    rows = max(1, _NN_BLOCK // max(1, scene_pts.shape[0]))
+    s_cols = [scene_pts[:, k].contiguous()[None, :] for k in range(3)]  # [1, M] each
+    m_cols = [model_pts[:, k:k + 1].contiguous() for k in range(3)]  # [N, 1] each
+    block = _NN_BLOCK_CPU if model_pts.device.type == "cpu" else _NN_BLOCK
+    rows = max(1, block // max(1, scene_pts.shape[0]))
     idx, best = [], []
     for r0 in range(0, model_pts.shape[0], rows):
-        cross_term = torch.matmul(model_pts[r0:r0 + rows], scene_t)
-        d2 = torch.sub(m2[r0:r0 + rows] + s2, cross_term, alpha=2.0)
+        r = slice(r0, r0 + rows)
+        cross_term = m_cols[0][r] * s_cols[0]
+        cross_term.add_(m_cols[1][r] * s_cols[1])
+        cross_term.add_(m_cols[2][r] * s_cols[2])
+        d2 = (m2[r] + s2).sub_(cross_term.add_(cross_term))
         i = torch.argmin(d2, dim=-1)
         idx.append(i)
         best.append(torch.gather(d2, 1, i[:, None])[:, 0])
@@ -103,12 +113,11 @@ def _nearest_scene(model_pts, scene_pts, scene_valid):
 
 
 def _solve6(A, b):
-    """Solve the 6x6 normal equations with relative Levenberg damping:
+    """Solve the 6x6 normal equations with relative Levenberg damping,
+    1e-6 tr(A) + 1e-12 (refine/projective.py's unrolled Cholesky):
     degenerate directions (rotation about a sphere's centre) would
     otherwise amplify float32 noise into large spurious updates."""
-    lam = 1e-6 * torch.trace(A) + 1e-12
-    A = A + lam * torch.eye(6, dtype=A.dtype, device=A.device)
-    return torch.linalg.solve(A, b)
+    return _chol_solve6(A[None], b[None])[0]
 
 
 def _p2pl_step(pose, model_pc, scene_pts, scene_nrm, scene_valid, sample_mask,
@@ -136,16 +145,16 @@ def _p2pl_step(pose, model_pc, scene_pts, scene_nrm, scene_valid, sample_mask,
         thr = torch.clamp(thr, max=max_corr_dist)
     w = (sample_mask & (d_masked <= thr) & torch.isfinite(d_masked)).to(torch.float32)
 
-    r = torch.sum((mp - q) * n, dim=-1)  # signed point-to-plane residual
+    r = dot3(mp - q, n)  # signed point-to-plane residual
     # rotation about the weighted model centroid: with the camera origin
     # over a metre away, origin-centred rotations alias translations and
     # Gauss-Newton diverges
-    wsum = torch.clamp(torch.sum(w), min=1.0)
-    c = torch.sum(mp * w[:, None], dim=0) / wsum
+    wsum = torch.clamp(fixed_sum(w, 0), min=1.0)
+    c = div_rn(fixed_sum(mp * w[:, None], 0), wsum)
     J = torch.cat([cross(mp - c, n), n], dim=-1)  # [N, 6]
     Jw = J * w[:, None]
-    A = torch.matmul(Jw.T, J)
-    b = -torch.matmul(Jw.T, r[:, None])[:, 0]
+    A = fixed_sum(Jw[:, :, None] * J[:, None, :], 0)
+    b = -fixed_sum(Jw * r[:, None], 0)
     x = _solve6(A, b)
     dT = SE3.exp(x, sincos=sincos_device)
     # conjugate by the centroid shift: rotate about c, not the origin
@@ -153,7 +162,7 @@ def _p2pl_step(pose, model_pc, scene_pts, scene_nrm, scene_valid, sample_mask,
     shift = SE3.from_rt(eye, c)
     unshift = SE3.from_rt(eye, -c)
     new_pose = SE3.compose(shift, SE3.compose(dT, SE3.compose(unshift, pose)))
-    residual = torch.sum(torch.abs(r) * w) / wsum
+    residual = div_rn(fixed_sum(torch.abs(r) * w, 0), wsum)
     return new_pose, sqrt_rn(fixed_sum(x * x, -1)), residual
 
 

@@ -8,7 +8,10 @@ and ``fma_matmul`` are XLA:CPU's and PyTorch's CPU orders written out,
 so they equal ``jnp.linalg.norm``, ``vector_norm`` and ``matmul`` on the
 CPU; ``fma_rn`` is an exact fused multiply-add, held against rational
 arithmetic. The detect path's solve, Rodrigues map and cluster sums are
-held bitwise against numpy float32 models of the same operations.
+held bitwise against numpy float32 models of the same operations, and
+``eigh3`` (the 3x3 symmetric eigensolver of planes and PPF's normals)
+against a numpy float64 model of its Jacobi sweeps, bitwise, and against
+LAPACK's ``eigh``.
 """
 
 import fractions
@@ -233,6 +236,83 @@ def test_chol_solve6_equals_numpy_model():
         np.testing.assert_array_equal(_bits(got), _bits(_np_chol_solve6(A, b)))
 
 
+def _sym3(rng, n: int) -> np.ndarray:
+    """n seeded symmetric float32 3x3 matrices: random ones over nine
+    decades of scale, and R diag(d) R^T with two eigenvalues 1e-7..1e-1
+    apart (near-degenerate, as a flat neighbourhood gives)."""
+    M = rng.standard_normal((n, 3, 3))
+    A = (M + M.transpose(0, 2, 1)) * 10.0 ** rng.uniform(-6, 3, (n, 1, 1))
+    R = np.linalg.qr(rng.standard_normal((n, 3, 3)))[0]
+    d = np.stack([np.ones(n), 1 + 10.0 ** rng.uniform(-7, -1, n), rng.uniform(-3, 3, n)], -1)
+    Q = (R * d[:, None, :]) @ R.transpose(0, 2, 1)
+    A[n // 2:] = ((Q + Q.transpose(0, 2, 1)) / 2)[n // 2:]
+    A[:4] = np.diag([2.0, 1.0, 1.0])  # already diagonal, a tie: stable order
+    return A.astype(F32)
+
+
+def _np_eigh3(A: np.ndarray):
+    """eigh3's cyclic Jacobi in numpy float64, operation by operation."""
+    a = A.astype(np.float64)
+    m = {(i, j): a[:, i, j].copy() for i in range(3) for j in range(i, 3)}
+    one, zero = np.ones(len(A)), np.zeros(len(A))
+    v = {(i, j): one if i == j else zero for i in range(3) for j in range(3)}
+    key = lambda i, j: (i, j) if i <= j else (j, i)  # noqa: E731
+    with np.errstate(all="ignore"):
+        for _ in range(exact.EIGH3_SWEEPS):
+            for p, q, r in ((0, 1, 2), (0, 2, 1), (1, 2, 0)):
+                apq, app, aqq = m[p, q], m[p, p], m[q, q]
+                off = apq == 0
+                h = (aqq - app) / np.where(off, one, apq + apq)
+                t = np.where(h < 0, -one, one) / (np.abs(h) + np.sqrt(h * h + one))
+                t = np.where(off, zero, t)
+                c = one / np.sqrt(t * t + one)
+                s = t * c
+                m[p, p], m[q, q], m[p, q] = app - t * apq, aqq + t * apq, zero
+                arp, arq = m[key(r, p)], m[key(r, q)]
+                m[key(r, p)], m[key(r, q)] = c * arp - s * arq, s * arp + c * arq
+                for k in range(3):
+                    v[k, p], v[k, q] = c * v[k, p] - s * v[k, q], s * v[k, p] + c * v[k, q]
+    w = np.stack([m[0, 0], m[1, 1], m[2, 2]], -1)
+    order = np.argsort(w, -1, kind="stable")
+    V = np.stack([np.stack([v[k, j] for j in range(3)], -1) for k in range(3)], -2)
+    return (np.take_along_axis(w, order, -1).astype(F32),
+            np.take_along_axis(V, order[:, None, :], -1).astype(F32))
+
+
+def test_eigh3_equals_numpy_model_and_numpy_eigh():
+    A = _sym3(np.random.default_rng(12), 1 << 16)
+    w, V = (x.numpy() for x in exact.eigh3(torch.from_numpy(A)))
+    # every operation one IEEE float64 operation: the numpy model's bits
+    want_w, want_V = _np_eigh3(A)
+    np.testing.assert_array_equal(_bits(w), _bits(want_w))
+    np.testing.assert_array_equal(_bits(V), _bits(want_V))
+    # against LAPACK in float64: eigenvalues within an ulp of the largest,
+    # ascending; the smallest one's eigenvector within 1e-6 rad where its
+    # gap is over 1e-3 of the largest
+    ref_w, ref_V = np.linalg.eigh(A.astype(np.float64))
+    big = np.abs(ref_w).max(-1)
+    assert (np.abs(w - ref_w).max(-1) <= np.spacing(big.astype(F32))).all()
+    assert (np.diff(w, axis=-1) >= 0).all()
+    gap = (ref_w[:, 1] - ref_w[:, 0]) / big > 1e-3
+    v0 = V[:, :, 0].astype(np.float64)
+    cos = np.abs((v0 * ref_V[:, :, 0]).sum(-1)) / np.linalg.norm(v0, axis=-1)
+    assert gap.mean() > 0.8
+    assert np.arccos(np.minimum(cos[gap], 1.0)).max() < 1e-6
+    # orthonormal columns
+    np.testing.assert_allclose(np.einsum("nki,nkj->nij", V.astype(np.float64), V),
+                               np.broadcast_to(np.eye(3), V.shape), rtol=0, atol=1e-6)
+
+
+def test_eigh3_does_not_depend_on_batch_position():
+    A = _sym3(np.random.default_rng(13), 4096)
+    perm = np.random.default_rng(14).permutation(len(A))
+    w, V = exact.eigh3(torch.from_numpy(A))
+    w_p, V_p = exact.eigh3(torch.from_numpy(A[perm]))
+    assert torch.equal(w_p, w[perm]) and torch.equal(V_p, V[perm])
+    one_w, one_V = exact.eigh3(torch.from_numpy(A[5:6]))
+    assert torch.equal(one_w, w[5:6]) and torch.equal(one_V, V[5:6])
+
+
 def test_so3_exp_equals_numpy_model():
     rng = np.random.default_rng(11)
     w = (rng.standard_normal((N // 8, 3)) * 10.0 ** rng.uniform(-9, 0.5, (N // 8, 1))).astype(F32)
@@ -301,15 +381,16 @@ def test_cluster_sums_are_numpy_fixed_sums(monkeypatch):
 
 INEXACT = re.compile(r"\btorch \. (sqrt|rsqrt|sin|cos|tan|exp|expm1|log|log1p|atan2|arctan2|"
                      r"arccos|acos|arcsin|asin|pow|hypot|norm) \(|\. (sqrt|rsqrt|sin|cos|exp|log) "
-                     r"\( \)|vector_norm|torch \. linalg \. norm \(")
+                     r"\( \)|vector_norm|torch \. linalg \. (norm|eigh|eigvalsh|eig|solve) \(")
 # (numpy calls run on the host whatever the device, so they give one answer)
 # file -> why it may call the device's own functions
 INEXACT_ALLOWED = {
     "core/exact.py": "the helpers themselves (and sincos_device, the host fallback's "
                      "nearest-neighbour ICP's own pair, kept there with its reason)",
 }
-# float sums on lift + ICP and in the cluster stage that are exact in any
-# order: (file, line text) -> why
+# float sums in the files test_detect_sums_are_fixed_order reads (lift +
+# ICP, the cluster stage, planes, PPF's normals, the host fallback's ICP)
+# that are exact in any order or kept for a reason: (file, line text) -> why
 SUM = re.compile(r"\. sum \(|\. matmul \(|\. mean \(|\S @ ")
 SUM_ALLOWED = {
     ("api/detect_program.py", "cnt = Mf.sum(-1)"): "0/1 member counts",
@@ -319,6 +400,13 @@ SUM_ALLOWED = {
     ("api/detect_program.py", "<= pos[..., :, None]).sum(-1)"): "a count of booleans",
     ("api/detect_program.py", "torch.isfinite(models[..., 0]).sum(-1)"): "a count of booleans",
     ("refine/projective.py", "torch.sum(w, dim=-1)"): "0/1 inlier weights",
+    ("geom/plane.py", "w.sum(-1)"): "0/1 finite counts",
+    ("geom/plane.py", "(ns @ ref)"): "numpy on the host, one answer on every device",
+    ("geom/plane.py", "ns.mean(0)"): "numpy on the host",
+    ("geom/plane.py", "mean[members].mean(0)"): "numpy on the host",
+    ("ppf/helpers.py", "pc[:, :3] @ pose[:3, :3].T"): "numpy on the host",
+    ("ppf/helpers.py", "pc[:, 3:6] @ pose[:3, :3].T"): "numpy on the host",
+    ("refine/icp.py", "(~torch.isnan(a)).sum(-1, keepdim=True)"): "a count of booleans",
 }
 
 
@@ -351,7 +439,8 @@ def test_inexact_calls_only_in_exact():
 
 
 def test_detect_sums_are_fixed_order():
-    files = ("api/detect_program.py", "refine/projective.py", "core/se3.py", "core/reduce.py")
+    files = ("api/detect_program.py", "refine/projective.py", "core/se3.py", "core/reduce.py",
+             "geom/plane.py", "ppf/helpers.py", "refine/icp.py")
     found = []
     for rel in files:
         for i, code in _code_lines(PKG / rel):

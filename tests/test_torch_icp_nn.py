@@ -137,7 +137,7 @@ def test_nearest_scene_equals_reference(monkeypatch):
     tsp, _tsn, tvalid = port_icp.split_scene(torch.as_tensor(scene))
     np.testing.assert_array_equal(tvalid.numpy(), np.asarray(valid))
     # several row blocks, the last one ragged
-    monkeypatch.setattr(port_icp, "_NN_BLOCK", 3000 * 128)
+    monkeypatch.setattr(port_icp, "_NN_BLOCK_CPU", 3000 * 128)
     idx, d2 = port_icp._nearest_scene(torch.as_tensor(model), tsp, tvalid)
     # exact distances decide: where the two picks differ, they are equally
     # near to within the reference's float32 cancellation noise
