@@ -13,8 +13,8 @@ score are each program's own filler). The templates go to the port
 through io/convert.py.
 
 The bank is cut from the reference's 100 templates a class to 20 (242
-templates): the JAX package's conv match takes ~54 s at 20 on this CPU
-alone and ~12 min at 100, past the tier-1 budget. chip_smoke.py phase 18b
+templates): the JAX package's conv match takes about a minute at 20 a
+class on a CPU and over ten at 100, past the tier-1 budget. chip_smoke.py phase 18b
 and 18c run 1202 and 4000 templates on the card against the CPU port.
 """
 
