@@ -41,10 +41,11 @@ scene).
 ``--time``: ms per B=32 two-modality batch (host clock, median of 5 after
 one warm-up), the device operations (kernels, copies, fills) launched
 inside the ``detect.lift_icp`` and ``detect.cluster`` spans of one batch
-(torch.profiler trace) and ``clean_depth``'s ms per 480x640 frame (CUDA
-events). ``--root DIR`` imports the port from DIR (an
-unpacked copy of another commit), so that two commits are timed in turns
-by one script. The last line is one JSON object.
+(a torch.profiler trace, through chip_smoke.py ``trace_spans``, which
+switches the port's spans on with ``profiling.enable(True)`` for it) and
+``clean_depth``'s ms per 480x640 frame (CUDA events). ``--root DIR``
+imports the port from DIR (an unpacked copy of another commit), so that
+two commits are timed in turns by one script. The last line is one JSON object.
 """
 
 from __future__ import annotations

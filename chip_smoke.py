@@ -195,7 +195,8 @@ Phases (each raises on failure, so the script exits non-zero):
    c. tick    phase 8's 4-camera StreamingDetector.process: each camera
               equals its frame alone, bitwise
    d. times   ms per B=32 two-modality batch; the device operations of one
-              batch per detect.* span (torch.profiler trace), the lift + ICP
+              batch per detect.* span (torch.profiler trace, the port's
+              spans switched on for it: trace_spans), the lift + ICP
               span's among them; the phase's launches added to the kernels
               line
 16. colour: the snowman trained by add_view on a coloured view (blue the
@@ -2856,18 +2857,32 @@ def trace_ops(pd, depths, rgbs, K):
 
 
 def trace_spans(fn):
-    """One call of fn() under torch.profiler: for each detect.* span, the
-    device operations (kernels, copies, fills) launched inside it, its
-    host ms and the device ms of those operations; and the count of trace
-    events by category. ({span: (ops, host ms, device ms)}, {category:
-    count})."""
+    """One call of fn() under torch.profiler, with the port's spans
+    switched on for it (``profiling.enable(True)``; they are off by
+    default): for each detect.* span, the device operations (kernels,
+    copies, fills) launched inside it, its host ms and the device ms of
+    those operations; and the count of trace events by category. ({span:
+    (ops, host ms, device ms)}, {category: count})."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    from object_detector_6d_tpu_torch.utils import profiling
+
+    # a package from before the spans could be switched (batch_probe.py
+    # --root) has them always on
+    switch = getattr(profiling, "enable", None)
+    was = profiling.enabled() if switch else True
+    if switch:
+        switch(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        if switch:
+            switch(was)
+            profiling.take_spans()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         path = pathlib.Path(tmp) / "trace.json"

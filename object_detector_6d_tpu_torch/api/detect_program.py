@@ -24,7 +24,6 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from object_detector_6d_tpu_torch.core.config import ICPParams
 from object_detector_6d_tpu_torch.core.exact import norm3, norm4
@@ -35,6 +34,7 @@ from object_detector_6d_tpu_torch.ops.geometry import FusedScene, planes_to_scen
 from object_detector_6d_tpu_torch.parallel.sharding import all_gather_cat, axis_size
 from object_detector_6d_tpu_torch.refine.projective import icp_levels
 from object_detector_6d_tpu_torch.utils.debug import nan_watch
+from object_detector_6d_tpu_torch.utils.profiling import scope
 
 
 class PackedViews(NamedTuple):
@@ -562,22 +562,23 @@ def make_detect_program(
     @torch.no_grad()
     def run(sources, bank_args, views: PackedViews, threshold, *nms_args):
         sources = check_sources(sources)
-        # named spans for torch.profiler traces (no cost without a profiler)
-        with record_function("detect.match"):
+        # named spans (utils/profiling.py): off unless profiling.enable(True),
+        # then in torch.profiler traces and in profiling.take_spans()
+        with scope("detect.match"):
             if mesh is None:
                 packed = match_prog(sources, *bank_args, threshold)
             else:  # this rank's frames, merged over the model axis
                 packed = match_prog.local(sources, *bank_args, threshold)[:, :5]
         depths = frame_shard(sources)[depth_idx]
-        with record_function("detect.geometry"):
+        with scope("detect.geometry"):
             planes = fscene(depths)  # [B, 8, H, W]
             z_img = planes[:, 2]
             scenes = planes_to_scene8(planes)
-        with record_function("detect.lift_icp"):
+        with scope("detect.lift_icp"):
             poses, res, keep = lift_and_refine(z_img, scenes, packed, views)
         if device_nms:
             cls_of_tid, max_residual, trans_thr = nms_args
-            with record_function("detect.cluster"):
+            with scope("detect.cluster"):
                 out = cluster_stage(packed, poses, res, keep, cls_of_tid,
                                     float(np.float32(max_residual)),
                                     float(np.float32(trans_thr)))

@@ -37,6 +37,7 @@ from object_detector_6d_tpu_torch.ops.response import response_spread_batched
 from object_detector_6d_tpu_torch.parallel.sharding import all_gather_cat, axis_size
 from object_detector_6d_tpu_torch.quant.features import Template
 from object_detector_6d_tpu_torch.quant.pyramid import pyr_down_u8
+from object_detector_6d_tpu_torch.utils.profiling import scope
 
 
 @dataclasses.dataclass
@@ -253,14 +254,6 @@ def make_match_program(
     Wp2 = npow2(max(Wd + 17, 128))
     Hd1, Wd1 = -(-H1 // t1), -(-W1 // t1)
 
-    def compute_responses(sources_b):
-        """Quantize (K1, K2) + spread/response (K3) at both levels."""
-        qs_b = quantize_pyramids_batched(sources_b, modality_names, levels,
-                                         dn_params, cg_params)
-        R0_b = [response_spread_batched(q, t0) for q in qs_b[0]]
-        R1_b = [response_spread_batched(q, t1) for q in qs_b[1]]
-        return R0_b, R1_b
-
     def coarse_stage(R1_b, coarse_tables, nfeat_l1, sizes_l1, threshold):
         # stride-T1 sweep == sparse sweep over the decimated planes:
         # score[t,r,c] = sum_f D[l*t1^2+(fy%t1)*t1+fx%t1, r+fy//t1, c+fx//t1]
@@ -285,13 +278,18 @@ def make_match_program(
         above = raw > raw_thr[None, :, None, None]
         n_above = above.reshape(B, -1).sum(dim=1, dtype=torch.int32)
         flat_score = torch.where(above, raw, -1).reshape(B, -1)
+        return flat_score, n_above
+
+    def topk_stage(flat_score):
+        """The exact top-K of the thresholded grid, as template ids and
+        level-1 anchors."""
         top_vals, top_idx = exact_topk(flat_score, K_cap)
         valid = top_vals > -1
         tids = top_idx // (gh * gw)
         rc = top_idx % (gh * gw)
         xs = (rc % gw) * t1 + off1
         ys = (rc // gw) * t1 + off1
-        return tids, valid, n_above, xs, ys, top_vals
+        return tids, valid, xs, ys, top_vals
 
     def anchors_stage(tids, xs, ys, sizes_l0, window):
         """Level-0 anchors x2, y2 and the rows / columns where the 16x16
@@ -358,36 +356,48 @@ def make_match_program(
         return torch.cat([packed, n_col], dim=2)
 
     def core(sources, coarse_tables, feat_arrays, nfeat_l0, nfeat_l1, sizes_l0,
-             sizes_l1, threshold, tid_offset=0, max_dr=None):
+             sizes_l1, threshold, tid_offset=0, max_dr=None, rows=6):
         """The whole path on the given frames and (part of the) bank ->
-        [B, 6, K+1]; ``max_dr`` is the whole bank's (by default that of
-        ``feat_arrays``)."""
+        [B, rows, K+1] (the first ``rows`` of the 6); ``max_dr`` is the
+        whole bank's (by default that of ``feat_arrays``). Each stage runs
+        under its ``match.*`` span (utils/profiling.py)."""
         if len(sources) != num_mod:
             raise ValueError(f"{len(sources)} sources for modalities {tuple(modality_names)}")
         threshold = float(np.float32(threshold))
-        R0_b, R1_b = compute_responses(sources)
-        tids, valid, n_above, xs, ys, raw_vals = coarse_stage(
-            R1_b, coarse_tables, nfeat_l1, sizes_l1, threshold)
+        with scope("match.quantize"):
+            qs_b = quantize_pyramids_batched(sources, modality_names, levels,
+                                             dn_params, cg_params)
+        with scope("match.responses"):
+            R0_b = [response_spread_batched(q, t0) for q in qs_b[0]]
+            R1_b = [response_spread_batched(q, t1) for q in qs_b[1]]
+        with scope("match.coarse"):
+            flat_score, n_above = coarse_stage(R1_b, coarse_tables, nfeat_l1, sizes_l1,
+                                               threshold)
+        with scope("match.topk"):
+            tids, valid, xs, ys, raw_vals = topk_stage(flat_score)
         feat_plane, feat_dr, feat_dc, feat_n = feat_arrays
-        if max_dr is None:
-            max_dr = bank_max_dr(feat_arrays)
-        x2, y2, base_c, base_r = anchors_stage(tids, xs, ys, sizes_l0, 16 + max_dr)
-        total16 = None
-        for mod in range(num_mod):
-            D = build_D(R0_b[mod])
-            plane = feat_plane[mod][tids]
-            r0i = base_r[:, :, None] + feat_dr[mod][tids]
-            c0i = base_c[:, :, None] + feat_dc[mod][tids]
-            # invalid top-K slots sweep zero features
-            nfe = torch.where(valid, feat_n[mod][tids], 0)
-            s16 = refine_sweep_batched(D, plane, r0i, c0i, nfe).to(torch.float32)
-            total16 = s16 if total16 is None else total16 + s16
-        return post_stage(total16, tids, valid, n_above, x2, y2, nfeat_l0,
-                          threshold, raw_vals, tid_offset)
+        with scope("match.refine"):
+            if max_dr is None:
+                max_dr = bank_max_dr(feat_arrays)
+            x2, y2, base_c, base_r = anchors_stage(tids, xs, ys, sizes_l0, 16 + max_dr)
+            total16 = None
+            for mod in range(num_mod):
+                D = build_D(R0_b[mod])
+                plane = feat_plane[mod][tids]
+                r0i = base_r[:, :, None] + feat_dr[mod][tids]
+                c0i = base_c[:, :, None] + feat_dc[mod][tids]
+                # invalid top-K slots sweep zero features
+                nfe = torch.where(valid, feat_n[mod][tids], 0)
+                s16 = refine_sweep_batched(D, plane, r0i, c0i, nfe).to(torch.float32)
+                total16 = s16 if total16 is None else total16 + s16
+        with scope("match.post"):
+            out = post_stage(total16, tids, valid, n_above, x2, y2, nfeat_l0,
+                             threshold, raw_vals, tid_offset)
+            return out if rows == 6 else out[:, :rows].contiguous()
 
     if mesh is None:
         def run(sources, *bank_and_threshold):
-            return core(sources, *bank_and_threshold)[:, :5].contiguous()
+            return core(sources, *bank_and_threshold, rows=5)
 
         return run
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from object_detector_6d_tpu_torch.ops import kernels
+from object_detector_6d_tpu_torch.utils import profiling
 
 MAX_F = 256  # features per candidate (K4) or template (K6) a kernel launch stages
 
@@ -44,9 +45,11 @@ def _check_args(d_planes, plane_idx, r0, c0, nfeat):
         raise ValueError(f"nfeat {tuple(nfeat.shape)} vs tables {tuple(plane_idx.shape)}")
     F = plane_idx.shape[2]
     live = torch.arange(F, device=nfeat.device)[None, None, :] < nfeat[:, :, None]
-    bad = live & ((plane_idx < 0) | (plane_idx >= P) | (r0 < 0) | (r0 > Hp - 16)
-                  | (c0 < 0) | (c0 > Wp - 16))
-    if bool(bad.any()):
+    bad = (live & ((plane_idx < 0) | (plane_idx >= P) | (r0 < 0) | (r0 > Hp - 16)
+                   | (c0 < 0) | (c0 > Wp - 16))).any()
+    with profiling.host_read("k4_bounds"):
+        leaves = bool(bad)
+    if leaves:
         raise ValueError("refine sweep: a feature tile leaves its plane")
 
 
@@ -77,7 +80,11 @@ def chunked_sweep(sweep, tables, nfeat, chunk: int = MAX_F) -> torch.Tensor:
     F = tables[0].shape[-1]
     if F <= chunk:
         return sweep(*tables, nfeat)
-    most = int(nfeat.max()) if nfeat.numel() else 0
+    most = 0
+    if nfeat.numel():
+        most_t = nfeat.max()
+        with profiling.host_read("chunk_max"):
+            most = int(most_t)
     out = None
     for j in range(min(-(-F // chunk), max(1, -(-most // chunk)))):
         part = [t[..., j * chunk:(j + 1) * chunk] for t in tables]

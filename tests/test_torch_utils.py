@@ -18,7 +18,7 @@ import torch
 
 from object_detector_6d_tpu.utils.debug import checked as ref_checked
 from object_detector_6d_tpu.utils.profiling import DeviceTimer as RefDeviceTimer
-from object_detector_6d_tpu_torch.utils import debug
+from object_detector_6d_tpu_torch.utils import debug, profiling
 from object_detector_6d_tpu_torch.utils.debug import CheckError, checked
 from object_detector_6d_tpu_torch.utils.profiling import DeviceTimer, scope, trace_to
 
@@ -124,8 +124,13 @@ def test_device_timer_and_scope():
 
 
 def test_trace_to_writes_a_chrome_trace(tmp_path):
-    with trace_to(str(tmp_path / "trace")):
-        with scope("test/span"):
-            torch.ones(8).sum()
+    profiling.enable(True)  # the port's spans are off by default
+    try:
+        with trace_to(str(tmp_path / "trace")):
+            with scope("test/span"):
+                torch.ones(8).sum()
+    finally:
+        profiling.enable(False)
+        profiling.take_spans()
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert any(e.get("name") == "test/span" for e in trace["traceEvents"])
