@@ -18,9 +18,11 @@ Phases (each raises on failure, so the script exits non-zero):
                computes the same grid; K4
                (refine sweep) and K3 (spread + response) against their
                twins on the arguments the match program passes them;
-               timings
+               K7 (the match's exact top-K) against its twin at the
+               benchmark cell's [128, 1202x30x40] grid, timed beside the
+               stable torch.sort and torch.topk; timings
    b. main     PoseDetector.detect_fused_batch(depths, K, rgbs) on B=32
-               two-object 480x640 frames: every kernel K1-K6 launched, no
+               two-object 480x640 frames: every kernel K1-K7 launched, no
                frame through the overflow fallback (the counter
                ``overflow_fallback`` stays 0, so a main phase never times
                the host path), every objA pose within 1 cm and 5 deg of
@@ -917,6 +919,44 @@ def refine_record(dev, calls, gpu, what: str):
         library_ms=None, shape=shape + ", the kernel alone, L2 flushed before each batch")
 
 
+def select_record(dev, gpu):
+    """K7 against its twin at the benchmark cell's grid, [128, 1202 x 30 x
+    40] int32: -1 but for 28-55 values above the threshold a frame, and two
+    frames that overflow the 64 slots. Timed with CUDA events beside its
+    bound (one read of the grid), its twin, the stable torch.sort that
+    computes the same function (library_ms) and torch.topk (logged; its tie
+    order is not fixed). Returns its record."""
+    from object_detector_6d_tpu_torch.ops import select
+
+    rng = np.random.RandomState(21)
+    Bs, N, k, vmax = 128, 1202 * 30 * 40, 64, 4 * 62
+    x = torch.full((Bs, N), -1, dtype=torch.int32, device=dev)
+    for b in range(Bs):
+        n = 300 if b in (5, 77) else rng.randint(28, 56)
+        cells = torch.as_tensor(rng.choice(N, n, replace=False), device=dev)
+        x[b, cells] = torch.as_tensor(rng.randint(150, 180, n), dtype=torch.int32, device=dev)
+    got = select.select_topk(x, k, vmax)
+    want = select.select_topk_plain(x, k, vmax)
+    for g, w in zip(got, want):
+        compare(f"select_topk {tuple(x.shape)}", g, w)
+    bnd, by = bound_ms(x.numel() * 4 + Bs * k * 12)
+    sort_ms = cuda_ms(lambda: torch.sort(x, dim=-1, descending=True, stable=True), reps=3)
+    topk_ms = cuda_ms(lambda: torch.topk(x, k, dim=-1, sorted=True), reps=5)
+    rec = dict(
+        name="select_topk", route="cuda",
+        source="object_detector_6d_tpu_torch/csrc/select_topk.cu",
+        replaces="none (object_detector_6d_tpu/match/program.py lax.top_k's order)",
+        max_abs_err=0.0, ms=cuda_ms(lambda: select.select_topk(x, k, vmax)),
+        plain_ms=cuda_ms(lambda: select.select_topk_plain(x, k, vmax), reps=3),
+        bound_ms=bnd, bound_by=by, library_ms=sort_ms,
+        shape=f"{list(x.shape)} i32, vmax {vmax} -> [{Bs},{k}] i32 + i64")
+    log(f"kernel select_topk: equal to twin at {tuple(x.shape)}; kernel {rec['ms']:.4f} ms, "
+        f"bound {bnd:.4f} ms by {by}, twin {rec['plain_ms']:.4f} ms, torch.sort stable "
+        f"{sort_ms:.4f} ms, torch.topk {topk_ms:.4f} ms; {gpu}")
+    del x
+    return rec
+
+
 def depth_kernel_checks(dev, depths_np, K, bank_args, fscene_main, gpu):
     """K2-K5 against their twins on the card. Returns their records."""
     from object_detector_6d_tpu_torch.ops import quantize, refine, response
@@ -1532,12 +1572,12 @@ def offline_phase(dev, scenes, K, gpu):
     from object_detector_6d_tpu_torch.eval.harness import evaluate_scene
     from object_detector_6d_tpu_torch.io import native, yaml_store
     from object_detector_6d_tpu_torch.io.ply import load_ply, write_ply
-    from object_detector_6d_tpu_torch.ops import geometry, quantize, refine, response
+    from object_detector_6d_tpu_torch.ops import geometry, quantize, refine, response, select
 
     label = "offline"
     counted = (quantize.cg_quantize_batched, quantize.dn_quantize_batched,
                response.response_spread_batched, refine.coarse_sweep,
-               refine.refine_sweep_batched, geometry.FusedScene)
+               refine.refine_sweep_batched, geometry.FusedScene, select.select_topk)
     for fn in counted:
         fn.launches = 0
     total = {fn.__name__: 0 for fn in counted}
@@ -2352,11 +2392,11 @@ def pd_state(pd):
 
 
 def counted_wrappers():
-    from object_detector_6d_tpu_torch.ops import geometry, quantize, refine, response
+    from object_detector_6d_tpu_torch.ops import geometry, quantize, refine, response, select
 
     return (quantize.cg_quantize_batched, quantize.dn_quantize_batched,
             response.response_spread_batched, refine.coarse_sweep,
-            refine.refine_sweep_batched, geometry.FusedScene)
+            refine.refine_sweep_batched, geometry.FusedScene, select.select_topk)
 
 
 def counted_run(counted, fn):
@@ -3527,7 +3567,8 @@ def configs_phase(dev, pd2, scenes, K, counted, gpu):
 
 def run(dev, gpu: str) -> None:
     from object_detector_6d_tpu_torch.api.detector import Detector
-    from object_detector_6d_tpu_torch.ops import geometry, kernels, quantize, refine, response
+    from object_detector_6d_tpu_torch.ops import (geometry, kernels, quantize, refine, response,
+                                                  select)
 
     # phase 2: build
     t0 = time.time()
@@ -3547,9 +3588,10 @@ def run(dev, gpu: str) -> None:
     recs = color_kernel_checks(dev, pd2, rgbs2, depths2, gpu)
     recs.append(refine_main_path_record(dev, pd2, depths2, rgbs2, K, gpu))
     recs.append(response_main_path_record(dev, pd2, depths2, rgbs2, K, gpu))
+    recs.append(select_record(dev, gpu))
     counted2 = (quantize.cg_quantize_batched, quantize.dn_quantize_batched,
                 response.response_spread_batched, refine.coarse_sweep,
-                refine.refine_sweep_batched, geometry.FusedScene)
+                refine.refine_sweep_batched, geometry.FusedScene, select.select_topk)
     launches, _ = drive_path("two-modality", pd2, depths2, rgbs2, gts2, K, counted2,
                              REF2_OBJB_FOUND, REF2_OBJB_SPURIOUS, gpu)
 
@@ -3562,7 +3604,8 @@ def run(dev, gpu: str) -> None:
     recs += depth_kernel_checks(dev, depths, K, pd.bank_tensors(det.get_bank())[0],
                                 prog.fused_scene, gpu)
     counted = (quantize.dn_quantize_batched, response.response_spread_batched,
-               refine.coarse_sweep, refine.refine_sweep_batched, geometry.FusedScene)
+               refine.coarse_sweep, refine.refine_sweep_batched, geometry.FusedScene,
+               select.select_topk)
     drive_path("depth-only", pd, depths, None, gts, K, counted, REF_OBJB_FOUND,
                REF_OBJB_SPURIOUS, gpu)
 

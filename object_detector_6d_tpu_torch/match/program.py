@@ -8,7 +8,7 @@ object_detector_6d_tpu/match/program.py), one or two modalities.
     -> spread + response maps per level and modality (K3)
     -> coarse sweep of the packed bank's sparse level-1 feature tables
        over the T1-decimated planes of every modality (K6)
-    -> span mask, raw threshold, exact top-K
+    -> span mask, raw threshold, exact top-K (K7 over the whole batch)
     -> 16x16 level-0 refinement per modality (K4)
     -> [B, 5, K+1] packed candidates
 
@@ -34,6 +34,7 @@ import torch
 from object_detector_6d_tpu_torch.ops.quantize import cg_quantize_batched, dn_quantize_batched
 from object_detector_6d_tpu_torch.ops.refine import coarse_sweep, refine_sweep_batched
 from object_detector_6d_tpu_torch.ops.response import response_spread_batched
+from object_detector_6d_tpu_torch.ops.select import exact_topk, select_topk
 from object_detector_6d_tpu_torch.parallel.sharding import all_gather_cat, axis_size
 from object_detector_6d_tpu_torch.quant.features import Template
 from object_detector_6d_tpu_torch.quant.pyramid import pyr_down_u8
@@ -200,13 +201,6 @@ def decimate(R: torch.Tensor, t: int, hd: int, wd: int) -> torch.Tensor:
             .reshape(B, 8 * t * t, hd, wd))
 
 
-def exact_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis in lax.top_k's order: descending value,
-    ties broken by the lower index (a stable descending sort)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def make_match_program(
     modality_names: Sequence[str],
     t_at_level: Sequence[int],
@@ -280,16 +274,22 @@ def make_match_program(
         flat_score = torch.where(above, raw, -1).reshape(B, -1)
         return flat_score, n_above
 
-    def topk_stage(flat_score):
-        """The exact top-K of the thresholded grid, as template ids and
-        level-1 anchors."""
-        top_vals, top_idx = exact_topk(flat_score, K_cap)
+    anchor_luts = {}
+
+    def topk_stage(flat_score, vmax):
+        """The exact top-K of the thresholded grid (K7 over the whole batch;
+        every value in [-1, vmax]), as template ids and level-1 anchors."""
+        top_vals, top_idx = select_topk(flat_score, K_cap, vmax)
         valid = top_vals > -1
         tids = top_idx // (gh * gw)
-        rc = top_idx % (gh * gw)
-        xs = (rc % gw) * t1 + off1
-        ys = (rc // gw) * t1 + off1
-        return tids, valid, xs, ys, top_vals
+        # each grid cell's (x, y) anchor, made once a device: one gather a
+        # batch in place of six integer passes
+        dev = flat_score.device
+        if dev not in anchor_luts:
+            rc = torch.arange(gh * gw, device=dev)
+            anchor_luts[dev] = torch.stack([(rc % gw) * t1 + off1, (rc // gw) * t1 + off1], 1)
+        xy = anchor_luts[dev][top_idx % (gh * gw)]
+        return tids, valid, xy[..., 0], xy[..., 1], top_vals
 
     def anchors_stage(tids, xs, ys, sizes_l0, window):
         """Level-0 anchors x2, y2 and the rows / columns where the 16x16
@@ -374,7 +374,9 @@ def make_match_program(
             flat_score, n_above = coarse_stage(R1_b, coarse_tables, nfeat_l1, sizes_l1,
                                                threshold)
         with scope("match.topk"):
-            tids, valid, xs, ys, raw_vals = topk_stage(flat_score)
+            # K6 sums responses 0..4 over at most F features a template
+            tids, valid, xs, ys, raw_vals = topk_stage(flat_score,
+                                                       4 * coarse_tables[0].shape[1])
         feat_plane, feat_dr, feat_dc, feat_n = feat_arrays
         with scope("match.refine"):
             if max_dr is None:

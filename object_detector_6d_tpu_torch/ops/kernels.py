@@ -60,6 +60,8 @@ _SIGNATURES = {
     # D i8, plane i32, dr i32, dc i32, nfeat i32, out i32, B, P, Hp, Wp, nT, F,
     # out_h, out_w, stream
     "odc_coarse_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x i32, vals i32, idx i64, scratch i32, B, N, K, vmax, vec (16-byte loads), stream
+    "odc_select_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from object_detector_6d_tpu_torch.ops import quantize, refine, response
+from object_detector_6d_tpu_torch.ops import quantize, refine, response, select
 from object_detector_6d_tpu_torch.ops.geometry import FusedScene
 
 pytestmark = pytest.mark.cuda
@@ -393,3 +393,114 @@ def test_coarse_kernel_beyond_max_f_in_chunks(dev, F):
 def test_response_kernel_beyond_max_t(dev, B, H, W, t):
     rng = np.random.RandomState(H * W + t)
     _response_equal(_onehot(rng, (B, H, W)).to(dev), t)
+
+
+# K7: the exact top-K of the thresholded grid (values in [-1, vmax])
+SEL_TILE = select.TILE
+SEL_VMAX = 248  # 4 x 62 features: the benchmark cell's coarse tables
+
+
+def _sparse_grid(rng, B, N, n_above, lo, hi):
+    """-1 grids with n_above[b] cells of values in [lo, hi] at random places."""
+    x = np.full((B, N), -1, np.int32)
+    for b in range(B):
+        x[b, rng.choice(N, n_above[b], replace=False)] = rng.randint(lo, hi + 1, n_above[b])
+    return x
+
+
+def _select_equal(x, k, vmax):
+    """K7 on the card == the CPU twin (the stable sort), bitwise; one launch."""
+    before = select.select_topk.launches
+    got_v, got_i = select.select_topk(x, k, vmax)
+    torch.cuda.synchronize()
+    assert select.select_topk.launches - before == (1 if x.shape[0] and k else 0)
+    want_v, want_i = select.select_topk(x.cpu(), k, vmax)
+    assert got_v.dtype == torch.int32 and got_i.dtype == torch.int64
+    assert torch.equal(got_v.cpu(), want_v) and torch.equal(got_i.cpu(), want_i)
+
+
+def _select_cases():
+    rng = np.random.RandomState(11)
+    T = SEL_TILE
+    yield "invalid", np.full((3, 2 * T + 1000), -1, np.int32), 64, SEL_VMAX
+    yield "fewer than K", _sparse_grid(rng, 3, 3 * T + 77, [0, 5, 63], 150, SEL_VMAX), 64, SEL_VMAX
+    yield "exactly K", _sparse_grid(rng, 2, 2 * T + 4, [64, 64], 150, 160), 64, SEL_VMAX
+    yield "ties past K", _sparse_grid(rng, 2, 3 * T, [300, 200], 190, 200), 64, SEL_VMAX
+    for value in (-1, 0, 37, SEL_VMAX):
+        yield f"all {value}", np.full((2, T + 5), value, np.int32), 64, SEL_VMAX
+    at_vmax = _sparse_grid(rng, 2, 2 * T + 12, [40, 90], SEL_VMAX - 1, SEL_VMAX)
+    at_vmax[0, :3] = SEL_VMAX
+    yield "at vmax", at_vmax, 64, SEL_VMAX
+    for N in (T - 1, T + 1, 3 * T + 1024 + 3, 1031, 65, 64):
+        x = rng.randint(-1, 6, (2, N)).astype(np.int32)
+        x[1] = np.where(rng.uniform(size=N) < 0.98, -1, x[1])
+        yield f"N={N}", x, 64, 20
+    N = 2 * T + 500
+    yield "frames differ", np.stack([
+        np.full(N, -1, np.int32), _sparse_grid(rng, 1, N, [30], 150, SEL_VMAX)[0],
+        _sparse_grid(rng, 1, N, [500], 150, 170)[0],
+        rng.randint(-1, SEL_VMAX + 1, N).astype(np.int32)]), 64, SEL_VMAX
+    for k in (1, 7, 1024, 3 * T):
+        yield f"K={k}", _sparse_grid(rng, 2, 3 * T, [k // 2, min(2 * k, 3 * T)], 10, 12), k, 12
+    yield "2402 bins", rng.randint(-1, 2401, (3, 2 * T + 8)).astype(np.int32), 64, 2400
+    yield "B=0", np.zeros((0, 100), np.int32), 4, 10
+    yield "K=0", np.full((2, 100), -1, np.int32), 0, 10
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _select_cases()])
+def test_select_topk_kernel_equals_twin(dev, case):
+    _, x, k, vmax = next(c for c in _select_cases() if c[0] == case)
+    _select_equal(torch.as_tensor(x, device=dev), k, vmax)
+
+
+def test_select_topk_kernel_unaligned_rows(dev):
+    """A view 4 bytes off 16-byte alignment and rows of N % 4 != 0 take the
+    scalar loads."""
+    rng = np.random.RandomState(12)
+    x = _sparse_grid(rng, 2, 3 * SEL_TILE, [50, 80], 150, SEL_VMAX)
+    flat = torch.full((x.size + 1,), -1, dtype=torch.int32, device=dev)
+    flat[1:] = torch.as_tensor(x.reshape(-1), device=dev)
+    _select_equal(flat[1:].view(x.shape), 64, SEL_VMAX)
+    _select_equal(torch.as_tensor(x[:, :-3].copy(), device=dev), 64, SEL_VMAX)
+
+
+def test_select_topk_kernel_cell_shape(dev):
+    """[128, 1202 x 30 x 40]: the benchmark cell's grid, 28-55 candidates a
+    frame, and two frames that overflow the 64 slots; against the twin's
+    stable sort on the card."""
+    rng = np.random.RandomState(13)
+    B, N = 128, 1202 * 30 * 40
+    x = torch.full((B, N), -1, dtype=torch.int32, device=dev)
+    for b in range(B):
+        n = 300 if b in (5, 77) else rng.randint(28, 56)
+        cells = torch.as_tensor(rng.choice(N, n, replace=False), device=dev)
+        x[b, cells] = torch.as_tensor(rng.randint(150, 180, n), dtype=torch.int32, device=dev)
+    got_v, got_i = select.select_topk(x, 64, SEL_VMAX)
+    want_v, want_i = select.select_topk_plain(x, 64, SEL_VMAX)
+    torch.cuda.synchronize()
+    assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+
+
+def test_select_topk_launches_once_a_match_batch(dev):
+    """make_match_program launches K7 once a batch, and its record equals
+    the CPU's (the programs of tests/test_torch_tracing.py)."""
+    from object_detector_6d_tpu_torch.data.synthetic import synthetic_bank
+    from object_detector_6d_tpu_torch.match import program as mp
+
+    H, W = 120, 160
+    det = synthetic_bank(2, 4, bbox_px=40, seed=0)
+    bank = mp.pack_bank(det.class_templates, 2, 2, t0=5, t1=8)
+    rng = np.random.RandomState(0)
+    sources = [torch.as_tensor(rng.randint(0, 256, (2, H, W, 3)).astype(np.uint8)),
+               torch.as_tensor((1000 + rng.randint(0, 400, (2, H, W))).astype(np.int32))]
+    records = []
+    for d in ("cpu", dev):
+        prog = mp.make_match_program(det.modality_names, det.t_at_level, (H, W),
+                                     det.dn_params, det.cg_params, 4)
+        args = mp.bank_args(bank, d)
+        before = select.select_topk.launches
+        for _ in range(3):
+            out = prog([s.to(d) for s in sources], *args, 60.0)
+        records.append(out.cpu())
+        assert select.select_topk.launches - before == (3 if d == dev else 0)
+    assert torch.equal(records[0], records[1])

@@ -122,7 +122,7 @@ def test_kernel_source_hash_tracks_sources():
     assert len(h) == 16 and h == kernels.source_hash()
     names = {p.name for p in kernels.CSRC.glob("*.cu")}
     assert names == {"cg_quantize.cu", "dn_quantize.cu", "response_spread.cu",
-                     "refine_sweep.cu", "fused_scene.cu", "coarse_sweep.cu"}
+                     "refine_sweep.cu", "fused_scene.cu", "coarse_sweep.cu", "select_topk.cu"}
 
 
 def _entry_points():
