@@ -3,14 +3,15 @@ over many seeds, in one process.
 
     python3 -m bench_port.control --workload <cell> --seeds 11,12,13 --seconds 3
 
-The bank, the program, the plain reference and the control (the
-reference with every float step in bfloat16) are built once. For each
-seed the pool is rendered, the threshold rule applied, the program run in
-a short closed loop at the cell's batch (every sampled frame answered at
-least once) and the sampled frames' records compared with the
-reference's (the lower readings); then the control's records on the same
-frames are compared with the reference's (the upper readings). One JSON
-line a seed on stdout. The benchmark's own runs do not run this.
+The bank and the program (the cell's entry) are built once. For each
+seed the pool is rendered, the entry's calibration applied, the program
+run in a short closed loop at the cell's batch (every sampled frame
+answered at least once) and the sampled frames' answers compared with the
+entry's plain reference's by the entry's comparison (the lower
+readings); then the control, the reference in the entry's ``CONTROL``
+precision, answers the same frames and is compared with the reference
+(the upper readings). One JSON line a seed on stdout. The benchmark's own
+runs do not run this.
 """
 
 from __future__ import annotations
@@ -35,26 +36,20 @@ def main(argv=None) -> int:
     cell, cfg, mix, limits, _, _ = run.resolve(spec, args.workload)
 
     import numpy as np
-    import torch
 
     from bench_port import bank as bank_mod
     from bench_port import compare, frames
 
     on_card = args.device == "cuda"
+    entry_mod = importlib.import_module(f"bench_port.entries.{mix['entry']}")
     bank = bank_mod.make_bank(cfg, args.device)
-    entry = importlib.import_module(f"bench_port.entries.{mix['entry']}").Entry(
-        cfg, mix, bank, args.device, run.log)
+    entry = entry_mod.Entry(cfg, mix, bank, args.device, run.log)
     maker = frames.FrameMaker(cfg["objects"], mix["placements"], device=args.device)
-    shape = (maker.H, maker.W)
-    ref = run.reference(cfg, bank, entry.K_cap, shape, args.device)
-    ctl = run.reference(cfg, bank, entry.K_cap, shape, args.device, "bfloat16")
-    B = int(mix["batch"])
-    n_pool = B * int(mix["pool_batches"])
+    n_pool = entry.B * int(mix["pool_batches"])
     for seed in (int(s) for s in args.seeds.split(",")):
         t = time.time()
-        depth, bgr, _ = frames.make_pool(maker, n_pool, seed, pin=on_card)
-        entry.threshold = float(cfg["match_threshold"])
-        entry.set_pool(depth, bgr)
+        pool = frames.make_pool(maker, n_pool, seed, pin=on_card)
+        entry.set_pool(pool)
         entry.calibrate()
         rng = np.random.default_rng([abs(seed), 1])
         sample = sorted(int(i) for i in rng.choice(n_pool, int(mix["sample_frames"]),
@@ -63,20 +58,21 @@ def main(argv=None) -> int:
         loop.fill()
         frames_done, window_s = loop.window(args.seconds)
         loop.drain()
-        idx = torch.as_tensor(sample)
-        d, c = depth[idx], bgr[idx]
-        want = dict(zip(sample, ref.match(d, c, entry.threshold)))
-        low = dict(zip(sample, ctl.match(d, c, entry.threshold)))
-        program, control = compare.compare_match(loop.answers, want), compare.compare_match(low, want)
+        state = entry.reference_state()
+        want = entry_mod.reference_answers(cfg, bank, pool, sample, state, args.device)
+        low = entry_mod.reference_answers(cfg, bank, pool, sample, state, args.device,
+                                          entry_mod.CONTROL)
+        program = entry_mod.compare(loop.answers, want, pool, sample)
+        control = entry_mod.compare(low, want, pool, sample)
         print(json.dumps({
-            "workload": args.workload, "seed": seed, "threshold": entry.threshold,
+            "workload": args.workload, "seed": seed, "state": state,
             "frames": frames_done, "window_s": window_s,
             "answered": sum(i in loop.answers for i in sample),
             "program": program, "control": control, "limits": limits,
             "program_correct": compare.judge(program, limits),
             "control_correct": compare.judge(control, limits),
             "seconds": time.time() - t}), flush=True)
-        del loop, depth, bgr
+        del loop, pool
     return 0
 
 

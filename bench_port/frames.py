@@ -19,6 +19,8 @@ order, from a numpy RandomState seeded by ``seed_state(seed)``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -134,6 +136,7 @@ class FrameMaker:
             dep, _, mask = snowman_scene(objects[p["class_id"]], device=device)
             self.splats.append(ObjectSplat(dep, mask, K))
         self.H, self.W = self.splats[0].H, self.splats[0].W
+        self.K = np.asarray(K, dtype=np.float64)
         self.device = device
 
     def render(self, t: np.ndarray):
@@ -155,9 +158,20 @@ class FrameMaker:
         return depth, gray[..., None].expand(F, self.H, self.W, 3).contiguous()
 
 
-def make_pool(maker: FrameMaker, n: int, seed: int, chunk: int = 64, pin: bool = False):
-    """n frames from ``seed``: (depth [n, H, W] int32, BGR [n, H, W, 3] u8,
-    translations [n, objects, 3]) on the host, in page-locked memory with
+class Pool(NamedTuple):
+    """A cell's frames, made from the seed: depth [n, H, W] int32 mm and BGR
+    [n, H, W, 3] u8 on the host, the placed objects' ground-truth
+    translations [n, objects, 3] (metres, camera frame, in the traffic's
+    placement order) and the camera K [3, 3] they were rendered with."""
+
+    depth: torch.Tensor
+    bgr: torch.Tensor
+    translations: np.ndarray
+    K: np.ndarray
+
+
+def make_pool(maker: FrameMaker, n: int, seed: int, chunk: int = 64, pin: bool = False) -> Pool:
+    """n frames from ``seed`` on the host, in page-locked memory with
     ``pin``; rendered on the maker's device ``chunk`` frames at a time."""
     t = draw_translations(seed_state(seed), maker.placements, n)
     depth = torch.empty((n, maker.H, maker.W), dtype=torch.int32, pin_memory=pin)
@@ -166,4 +180,4 @@ def make_pool(maker: FrameMaker, n: int, seed: int, chunk: int = 64, pin: bool =
         d, c = maker.render(t[s:s + chunk])
         depth[s:s + chunk].copy_(d)
         bgr[s:s + chunk].copy_(c)
-    return depth, bgr, t
+    return Pool(depth, bgr, t, maker.K)

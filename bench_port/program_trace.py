@@ -1,11 +1,12 @@
 """The program's own spans and host-read counter (the port's
-``utils/profiling.py``), read over steady batches of a cell:
+``utils/profiling.py``, switched by the entry's ``program_spans``), read
+over steady batches of a cell:
 
     python3 -m bench_port.program_trace --workload <cell> --seed <n> [--cost-seconds 51]
 
-Set-up is run.py's: the configuration's bank, the entry, the pinned pool
-made from the seed, the threshold, a warm closed loop. Then, over steady
-batches of that loop:
+Set-up is run.py's ``set_up``: the configuration's bank, the entry, the
+pinned pool made from the seed, the calibration, a warm closed loop.
+Then, over steady batches of that loop:
 
 1. window 1: run.py's ``traced_window`` as the benchmark's traced run
    takes it, with the program's spans off (their default), read by the
@@ -27,10 +28,12 @@ batches of that loop:
 5. the spans' cost: frames/s over ``--cost-seconds`` windows, spans off,
    on, on, off.
 
-``run["program"]`` (``program`` below) holds what the nine readers
-``bench_port/metrics/<name>.py`` of ``PROGRAM_METRICS`` read. The
-benchmark's own traced run (run.py) does not make these passes. The last
-line on stdout is the result's JSON.
+Steps 1-3 are what the benchmark's own traced run (run.py) makes, for an
+entry that has ``program_spans``; ``passes`` makes steps 2 and 3, and
+its ``program`` goes under ``run["program"]``, where the nine readers
+``bench_port/metrics/<name>.py`` of ``PROGRAM_METRICS`` read. Steps 4
+and 5 are this module's alone. The last line on stdout is the result's
+JSON.
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
-import importlib
 import json
 import os
 import statistics
@@ -46,8 +48,7 @@ import sys
 import tempfile
 import time
 
-from bench_port import bank as bank_mod
-from bench_port import frames, run
+from bench_port import run
 from bench_port.trace import DEVICE_CATS, HOST_CALL_CATS, WINDOW_SPAN, reduce_trace
 
 STAGES = ("match.quantize", "match.responses", "match.coarse", "match.topk", "match.refine",
@@ -153,21 +154,9 @@ def host_value(run_: dict, key: str):
 
 
 def setup(cfg: dict, mix: dict, seed: int, device) -> run.Loop:
-    """run.py's set-up: the bank, the entry, the pool, the threshold and a
-    warm loop (the sampled frames left out: nothing is compared here)."""
-    import torch
-
-    entry = importlib.import_module(f"bench_port.entries.{mix['entry']}").Entry(
-        cfg, mix, bank_mod.make_bank(cfg, device), device, run.log)
-    maker = frames.FrameMaker(cfg["objects"], mix["placements"], device=device)
-    on_card = torch.device(device).type == "cuda"
-    depth, bgr, _ = frames.make_pool(maker, entry.B * int(mix["pool_batches"]), seed,
-                                     pin=on_card)
-    entry.set_pool(depth, bgr)
-    entry.calibrate()
-    loop = run.Loop(entry, int(mix["ahead"]), ())
-    warm(loop, int(mix["pool_batches"]) + 1)
-    return loop
+    """run.py's set-up: the bank, the entry, the pool, the calibration and
+    a warm loop."""
+    return run.set_up(cfg, mix, seed, device)[-1]
 
 
 def warm(loop: run.Loop, n: int) -> None:
@@ -178,35 +167,27 @@ def warm(loop: run.Loop, n: int) -> None:
         loop.dispatch()
 
 
-class _Spans:
-    """The program's spans on inside the block, off after it; the record
-    and the counters' increments of the block."""
-
-    def __enter__(self):
-        from object_detector_6d_tpu_torch.utils import profiling
-
-        self.profiling = profiling
-        profiling.take_spans()
-        self.before = dict(profiling.counts)
-        profiling.enable(True)
-        return self
-
-    def __exit__(self, *exc):
-        p = self.profiling
-        p.enable(False)
-        self.spans = p.take_spans()
-        self.counted = {k: v - self.before.get(k, 0) for k, v in p.counts.items()}
-        return False
+@contextlib.contextmanager
+def spans_on(entry):
+    """The program's spans on inside the block, off after it; the dict
+    yielded gets ``spans``, the block's record, and ``counted``, the
+    counters' increments over it."""
+    rec = {}
+    entry.program_spans(True)
+    try:
+        yield rec
+    finally:
+        rec["spans"], rec["counted"] = entry.program_spans(False)
 
 
 def host_pass(loop: run.Loop, n: int = HOST_BATCHES) -> dict:
     """``n`` steady steps with the spans on and no profiler; the numbers of
     their ``n`` dispatches (a finalize runs no program span)."""
-    with _Spans() as rec:
+    with spans_on(loop.entry) as rec:
         for _ in range(n):
             loop.finalize()
             loop.dispatch()
-    return host_numbers(rec.spans, rec.counted, n)
+    return host_numbers(rec["spans"], rec["counted"], n)
 
 
 def device_pass(loop: run.Loop, n: int) -> dict:
@@ -221,7 +202,7 @@ def device_pass(loop: run.Loop, n: int) -> dict:
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
-        with _Spans() as rec:
+        with spans_on(loop.entry) as rec:
             with profile(activities=activities) as prof:
                 with record_function(WINDOW_SPAN):
                     for _ in range(n):
@@ -234,8 +215,24 @@ def device_pass(loop: run.Loop, n: int) -> dict:
                     torch.cuda.synchronize()
         prof.export_chrome_trace(path)
         out = {"trace": reduce_trace(path, n), "program": reduce_program_trace(path, n),
-               "clock_us": clock_offsets(path, rec.spans)}
+               "clock_us": clock_offsets(path, rec["spans"])}
     return out
+
+
+def passes(loop: run.Loop, n: int, host_batches: int = HOST_BATCHES):
+    """After a traced window: the host pass over ``host_batches`` steps and
+    the device pass over ``n``, each from a warm loop. -> (``program``,
+    the numbers the readers read: {"stages_ms": device ms a batch of each
+    of ``STAGES`` found, "host": the host pass's numbers}; the device
+    pass's own numbers)."""
+    warm(loop, 2)
+    host = host_pass(loop, host_batches)
+    warm(loop, 2)
+    dev = device_pass(loop, n)
+    stages = dev["program"]["stages"]
+    program = {"stages_ms": {s: stages[s]["device_ms"] for s in STAGES if s in stages},
+               "host": host}
+    return program, dev
 
 
 def clock_offsets(path: str, spans) -> list:
@@ -260,7 +257,7 @@ def bitwise_on_off(entry) -> bool:
     import torch
 
     off = entry.dispatch(0).cpu()
-    with _Spans():
+    with spans_on(entry):
         on = entry.dispatch(0).cpu()
     return torch.equal(off, on)
 
@@ -270,7 +267,7 @@ def cost(loop: run.Loop, seconds: float) -> dict:
     rates = {"off": [], "on": []}
     for on in (False, True, True, False):
         loop.fill()
-        with _Spans() if on else contextlib.nullcontext():
+        with spans_on(loop.entry) if on else contextlib.nullcontext():
             n, t = loop.window(seconds)
         rates["on" if on else "off"].append(n / t)
     return rates
@@ -281,26 +278,17 @@ def measure(cfg: dict, mix: dict, per_layer, seed: int, cost_seconds: float, dev
     """Set-up and steps 1-5 of the module docstring; returns the result."""
     import torch
 
-    from object_detector_6d_tpu_torch.utils import profiling
-
-    if profiling.enabled():
-        raise RuntimeError("the program's spans must be off outside the passes")
     t = time.time()
     loop = setup(cfg, mix, seed, device)
-    run.log(f"set-up {time.time() - t:.2f} s; threshold {loop.entry.threshold:g}")
+    run.log(f"set-up {time.time() - t:.2f} s; {loop.entry.summary()}")
     n = int(mix["traced_batches"])
     red = run.traced_window(loop, n)
     window1 = {m["name"]: run.reader(m["name"])(
         {"host": loop.host, "trace": red, "shapes": loop.entry.shapes()}) for m in per_layer}
     run.log(f"window 1 (spans off): {window1}; per span a batch {json.dumps(red['spans'])}")
-    warm(loop, 2)
-    host = host_pass(loop, host_batches)
-    run.log(f"host pass ({host_batches} batches): {host}")
-    warm(loop, 2)
-    dev = device_pass(loop, n)
+    program, dev = passes(loop, n, host_batches)
+    run.log(f"host pass ({host_batches} batches): {program['host']}")
     stages = dev["program"]["stages"]
-    program = {"stages_ms": {s: stages[s]["device_ms"] for s in STAGES if s in stages},
-               "host": host}
     metrics = {name: run.reader(name)({"program": program}) for name in PROGRAM_METRICS}
     stage_sum = sum(program["stages_ms"].values())
     whole = window1.get("match_device_ms")

@@ -3,31 +3,38 @@
     python3 -m bench_port.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 runs one cell of BENCHMARK.json once, from the root of a checkout. The
-cell names a configuration (``bench_port/configs/<config>.json``: bank,
-quantizer settings, slots, threshold rule) and a traffic mix
+cell names a configuration (``bench_port/configs/<config>.json``: the
+bank and the program's settings) and a traffic mix
 (``bench_port/traffic/<traffic>.json``: entry, batch, batches in flight,
-pool, placements); its per-layer metrics are readers in
-``bench_port/metrics/<name>.py`` and its compared numbers' limits are in
-``bench_port/limits/<cell>.json``. Nothing here is specific to a cell.
+pool, placements); the mix's entry (``bench_port/entries/<entry>.py``)
+is the program under test with its reference and comparison; its
+per-layer metrics are readers in ``bench_port/metrics/<name>.py`` and its
+compared numbers' limits are in ``bench_port/limits/<cell>.json``.
+Nothing here is specific to a cell or a program.
 
 Set-up makes the configuration's template bank (``bench_port/bank.py``),
 hands it to the program (the entry), renders a pool of ``pool_batches`` x B
-distinct frames from the seed on the card into page-locked host memory,
-applies the threshold rule over the pool and warms the loop; it ends with
+distinct frames from the seed on the card into page-locked host memory
+(with their ground-truth translations and the camera), applies the
+entry's calibration over the pool and warms the loop; it ends with
 ``gc.collect(); gc.freeze()``. The window is a closed loop that keeps
 ``ahead`` batches dispatched: it finalizes the oldest, then dispatches the
 next batch of the pool, until ``--seconds`` have passed. The rate is the
 frames returned over the window's length (from its start to the last
 finalize); the host ms of every call are kept for the log and for the
 per-layer metrics. ``--trace 1`` runs the same window, then
-``torch.profiler`` over ``traced_batches`` steady batches, and reports the
-per-layer metrics. Every metric, end-to-end or per-layer, is read by
+``torch.profiler`` over ``traced_batches`` steady batches with the
+program's own spans off, then, for an entry that can switch them on,
+``bench_port/program_trace.py``'s host pass and device pass, and reports
+the per-layer metrics. Every metric, end-to-end or per-layer, is read by
 ``bench_port/metrics/<name>.py``.
 
-After the window, with the program freed, the plain reference
-(``bench_port/reference``) matches the sampled frames against the same bank (``sample_frames``,
-drawn from the seed) and the program's answers for them are compared
-(``bench_port/compare.py``). The last line on stdout is the result's JSON.
+After the window, with the program freed, the entry's plain reference
+answers the sampled frames (``sample_frames``, drawn from the seed) from
+the same pool and bank, and the entry's comparison holds the program's
+answers for them to the reference's (``bench_port/compare.py`` judges the
+numbers against the limits). The last line on stdout is the result's
+JSON.
 """
 
 from __future__ import annotations
@@ -71,17 +78,18 @@ def load_json(path: pathlib.Path) -> dict:
         return json.load(f)
 
 
-def resolve(spec: dict, workload: str):
+def resolve(spec: dict, workload: str, root: pathlib.Path = ROOT):
     """The cell's entry in BENCHMARK.json, its configuration, traffic mix,
-    limits and per-layer metrics, found by name."""
+    limits and per-layer metrics, found by name under ``root`` (the
+    checkout's root)."""
     cells = {w["name"]: w for w in spec["workloads"]}
     if workload not in cells:
         raise SystemExit(f"unknown workload {workload!r}; BENCHMARK.json has {sorted(cells)}")
     cell = cells[workload]
     cfg_entry = next(c for c in spec["configs"] if c["name"] == cell["config"])
-    cfg = load_json(ROOT / cfg_entry["file"])
-    mix = load_json(BENCH / "traffic" / f"{cell['traffic']}.json")
-    limits = load_json(BENCH / "limits" / f"{workload}.json")
+    cfg = load_json(root / cfg_entry["file"])
+    mix = load_json(root / "bench_port" / "traffic" / f"{cell['traffic']}.json")
+    limits = load_json(root / "bench_port" / "limits" / f"{workload}.json")
     per_layer = [m for m in spec["per_layer"] if workload in m.get("workloads", [workload])]
     end_to_end = [m for m in spec["end_to_end"] if workload in m.get("workloads", [workload])]
     return cell, cfg, mix, limits, end_to_end, per_layer
@@ -230,44 +238,23 @@ def traced_window(loop: Loop, n: int) -> dict:
         return reduce_trace(path, n)
 
 
-def reference(cfg: dict, bank: list, K_cap: int, frame_shape, device,
-              precision: str = "float32"):
-    """The plain reference's matcher for a configuration and its bank."""
-    from bench_port.reference.match import Matcher
-
-    return Matcher(bank, cfg["modalities"], cfg["t_at_level"], frame_shape,
-                   cfg["color_gradient"]["weak_threshold"],
-                   cfg["depth_normal"]["distance_threshold"],
-                   cfg["depth_normal"]["difference_threshold"], K_cap, device, precision)
-
-
-def run_cell(workload: str, cfg: dict, mix: dict, limits: dict, end_to_end, per_layer,
-             seed: int, seconds: float, trace: bool, device="cuda", started=None) -> dict:
-    """Set-up, the window, the comparison; returns the result's JSON."""
-    started = time.time() if started is None else started
-    parts = {"start": time.time() - started}  # interpreter, torch, the card's context
-    log(f"set-up: start {parts['start']:.2f} s")
-
-    def part(name, t):
-        parts[name] = time.time() - t
-        log(f"set-up: {name} {parts[name]:.2f} s")
-
+def set_up(cfg: dict, mix: dict, seed: int, device, part=lambda name, t: None):
+    """The entry's module and kernels, the bank, the entry, the pool, the
+    sample, the calibration and a warm loop, each timed by ``part(name,
+    start)``; ends with ``gc.collect(); gc.freeze()``. -> (entry module,
+    bank, entry, pool, sample, loop)."""
     t = time.time()
     import numpy as np
     import torch
 
-    import object_detector_6d_tpu_torch.match.program  # noqa: F401  the port
-
     from bench_port import bank as bank_mod
-    from bench_port import compare, frames
-    entry_mod = importlib.import_module(f"bench_port.entries.{mix['entry']}")
+    from bench_port import frames
+    entry_mod = importlib.import_module(f"bench_port.entries.{mix['entry']}")  # the program
     part("import", t)
     on_card = torch.device(device).type == "cuda"
     if on_card:
         t = time.time()
-        from object_detector_6d_tpu_torch.ops import kernels
-
-        kernels.library()
+        entry_mod.load_kernels()
         part("kernel library load", t)
         torch.cuda.reset_peak_memory_stats()
     t = time.time()
@@ -277,12 +264,11 @@ def run_cell(workload: str, cfg: dict, mix: dict, limits: dict, end_to_end, per_
     entry = entry_mod.Entry(cfg, mix, bank, device, log)
     part("program set-up", t)
     t = time.time()
-    B = int(mix["batch"])
-    n_pool = B * int(mix["pool_batches"])
+    n_pool = entry.B * int(mix["pool_batches"])
     maker = frames.FrameMaker(cfg["objects"], mix["placements"], device=device)
-    depth, bgr, _ = frames.make_pool(maker, n_pool, seed, pin=on_card)
+    pool = frames.make_pool(maker, n_pool, seed, pin=on_card)
     del maker
-    entry.set_pool(depth, bgr)
+    entry.set_pool(pool)
     if on_card:
         torch.cuda.synchronize()
     part("frame pool", t)
@@ -301,8 +287,28 @@ def run_cell(workload: str, cfg: dict, mix: dict, limits: dict, end_to_end, per_
     gc.collect()
     gc.freeze()
     part("warm-up", t)
-    log(f"threshold {entry.threshold:g}; pool {n_pool} frames, {entry.pool_overflow} with more "
-        f"candidates than slots; sample {sample}")
+    return entry_mod, bank, entry, pool, sample, loop
+
+
+def run_cell(workload: str, cfg: dict, mix: dict, limits: dict, end_to_end, per_layer,
+             seed: int, seconds: float, trace: bool, device="cuda", started=None) -> dict:
+    """Set-up, the window, the comparison; returns the result's JSON."""
+    started = time.time() if started is None else started
+    parts = {"start": time.time() - started}  # interpreter, torch, the card's context
+    log(f"set-up: start {parts['start']:.2f} s")
+
+    def part(name, t):
+        parts[name] = time.time() - t
+        log(f"set-up: {name} {parts[name]:.2f} s")
+
+    import torch
+
+    from bench_port import compare
+
+    on_card = torch.device(device).type == "cuda"
+    entry_mod, bank, entry, pool, sample, loop = set_up(cfg, mix, seed, device, part)
+    B = entry.B
+    log(f"{entry.summary()}; pool {pool.depth.shape[0]} frames; sample {sample}")
     card = smi() if on_card else "cpu"
     log(f"card at the window's start: {card}")
     setup_s = time.time() - started
@@ -320,15 +326,22 @@ def run_cell(workload: str, cfg: dict, mix: dict, limits: dict, end_to_end, per_
                 "count": 1, "memory_peak_bytes": int(memory_peak)}
     metrics, breakdown = {}, None
     if trace:
-        red = traced_window(loop, int(mix["traced_batches"]))
+        n = int(mix["traced_batches"])
+        red = traced_window(loop, n)
         run = {"host": loop.host, "trace": red, "shapes": entry.shapes()}
+        log("per span a batch: " + json.dumps(red["spans"]))
+        if hasattr(entry, "program_spans"):
+            from bench_port import program_trace
+
+            run["program"], dev = program_trace.passes(loop, n)
+            log(f"program's host pass: {json.dumps(run['program']['host'])}; device pass, a "
+                f"batch: {json.dumps(dev['program'])}")
         for m in per_layer:
             value = reader(m["name"])(run)
             if value is not None:
                 metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
         dev_info.update(busy_s=red["busy_s"], window_s=red["window_s"])
         breakdown = {"device_ops": red["device_ops"], "idle_gaps": red["idle_gaps"]}
-        log("per span a batch: " + json.dumps(red["spans"]))
     else:
         run = {"frames": frames_done, "window_s": window_s, "setup_s": setup_s}
         for m in end_to_end:
@@ -338,7 +351,7 @@ def run_cell(workload: str, cfg: dict, mix: dict, limits: dict, end_to_end, per_
         + f"; setup_s {setup_s:.2f} s")
 
     # the comparison, with the program freed
-    threshold, K_cap = entry.threshold, entry.K_cap
+    state = entry.reference_state()
     got = loop.answers
     entry.free()
     del loop, entry
@@ -347,10 +360,8 @@ def run_cell(workload: str, cfg: dict, mix: dict, limits: dict, end_to_end, per_
     if on_card:
         torch.cuda.empty_cache()
     t = time.time()
-    ref = reference(cfg, bank, K_cap, tuple(depth.shape[1:3]), device)
-    idx = torch.as_tensor(sample)
-    want = dict(zip(sample, ref.match(depth[idx], bgr[idx], threshold)))
-    numbers = compare.compare_match(got, want)
+    want = entry_mod.reference_answers(cfg, bank, pool, sample, state, device)
+    numbers = entry_mod.compare(got, want, pool, sample)
     log(f"reference: {len(sample)} frames in {time.time() - t:.1f} s")
     correct = compare.judge(numbers, limits)
     checks = {k: {"value": numbers.get(k), "limit": lim} for k, lim in limits.items()}

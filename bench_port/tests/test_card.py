@@ -1,5 +1,6 @@
 """On the card: one short run of the cell through the command, as the
-benchmark's checks run it (skips without a CUDA card)."""
+benchmark's checks run it, untraced and traced (skips without a CUDA
+card)."""
 
 import json
 import subprocess
@@ -8,7 +9,7 @@ import sys
 import pytest
 import torch
 
-from bench_port.tests.cells import MATCH, ROOT
+from bench_port.tests.cells import MATCH, ROOT, SPEC
 
 
 @pytest.fixture
@@ -32,3 +33,11 @@ def test_match_cell_runs_on_the_card(card, trace):
     if trace:
         assert 0 < res["device"]["busy_s"] <= res["device"]["window_s"]
         assert 0 < res["metrics"]["match_roofline"]["value"] <= 100
+        # the program passes: all nine metrics, the six stages summing to
+        # the match span of the window before them
+        names = [m["name"] for m in SPEC["per_layer"] if MATCH in m.get("workloads", [MATCH])]
+        assert set(res["metrics"]) == set(names)
+        stages = sum(res["metrics"][f"{s}_device_ms"]["value"]
+                     for s in ("quantize", "responses", "coarse", "topk", "refine", "post"))
+        assert 0.95 <= stages / res["metrics"]["match_device_ms"]["value"] <= 1.05
+        assert res["metrics"]["host_syncs"]["value"] > 0

@@ -5,7 +5,8 @@ reference in float32, on the CPU, where the reference equals itself."""
 import pytest
 
 from bench_port import bank as bank_mod
-from bench_port import compare, frames, run
+from bench_port import compare, frames
+from bench_port.entries import match
 from bench_port.reference.quantize import rounding
 from bench_port.tests.cells import small_cell
 
@@ -14,16 +15,15 @@ def test_control_fails_and_reference_passes():
     cfg, mix, limits, _, _ = small_cell()
     bank = bank_mod.make_bank(cfg)
     maker = frames.FrameMaker(cfg["objects"], mix["placements"])
-    depth, bgr, _ = frames.make_pool(maker, 2, 21)
-    K, thr = int(cfg["max_hypotheses"]), float(cfg["match_threshold"])
+    pool = frames.make_pool(maker, 2, 21)
+    state = {"threshold": float(cfg["match_threshold"]), "K_cap": int(cfg["max_hypotheses"])}
 
     def answers(precision):
-        m = run.reference(cfg, bank, K, (maker.H, maker.W), "cpu", precision)
-        return dict(enumerate(m.match(depth, bgr, thr)))
+        return match.reference_answers(cfg, bank, pool, [0, 1], state, "cpu", precision)
 
     want = answers("float32")
-    assert compare.judge(compare.compare_match(answers("float32"), want), limits)
-    numbers = compare.compare_match(answers("bfloat16"), want)
+    assert compare.judge(match.compare(answers("float32"), want, pool, [0, 1]), limits)
+    numbers = match.compare(answers(match.CONTROL), want, pool, [0, 1])
     assert not compare.judge(numbers, limits), numbers
 
 

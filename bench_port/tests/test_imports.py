@@ -45,6 +45,6 @@ def test_reference_imports_nothing_of_the_port(path):
 
 
 @pytest.mark.parametrize("name", ["bank.py", "frames.py", "compare.py", "roofline.py",
-                                  "trace.py"])
+                                  "trace.py", "run.py", "program_trace.py", "control.py"])
 def test_neutral_modules_import_nothing_of_the_port(name):
     assert "object_detector_6d_tpu_torch" not in set(top_level_imports(BENCH / name))

@@ -18,7 +18,7 @@ def pool():
     maker = frames.FrameMaker({"objA": 1.0, "objB": 0.78}, [
         {"class_id": "objA", "center": [0.0, 0.0, 0.0], "half": [0.05, 0.04, 0.04]},
         {"class_id": "objB", "center": [-0.26, 0.11, 0.04], "half": [0.03, 0.03, 0.03]}])
-    depth, bgr, _ = frames.make_pool(maker, 2, 31)
+    depth, bgr = frames.make_pool(maker, 2, 31)[:2]
     g = torch.Generator().manual_seed(0)
     noise_bgr = torch.randint(0, 256, (1, 96, 128, 3), dtype=torch.uint8, generator=g)
     noise_depth = torch.randint(600, 760, (1, 96, 128), dtype=torch.int32, generator=g)
